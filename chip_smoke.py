@@ -1,0 +1,431 @@
+"""GPU smoke run of the PyTorch/CUDA port: ``python3 chip_smoke.py``.
+
+Needs one CUDA device (it exits non-zero without one, and when the rest of
+the repository is not beside it). It
+
+1. prints the card (``nvidia-smi`` name and power limit, torch's name);
+2. builds the three CUDA kernels of ``src/repro_torch/kernels/csrc`` with
+   ``nvcc``, in parallel, and prints the build time and register use;
+3. holds each kernel against its plain PyTorch version on the card, in f32
+   and bf16, at the serve path's shapes and at a ragged shape, and times the
+   kernel, the plain version and the one PyTorch library call that computes
+   the same function (timed only; the port never calls it) against the
+   least time the card could take (``bound_ms``);
+4. serves 8 requests of 512 random tokens at batch 4 with 64 new tokens
+   through ``ServeEngine.generate`` on tinyllama-1.1b at full width and
+   depth (bf16, random weights from seed 0), and checks that every kernel
+   ran on that path, that a decode step's logits match prefill's on the same
+   prefix, and that the kernel path matches the plain path in f32 and bf16;
+5. prints a JSON line of per-kernel numbers and, last, the JSON result line.
+
+Any failed check raises, so the script exits non-zero before the last line.
+"""
+
+from __future__ import annotations
+
+import copy
+import importlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 0
+ARCH = "tinyllama-1.1b"
+REQUESTS, PROMPT_LEN, BATCH, NEW_TOKENS = 8, 512, 4, 64
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}  # (rtol, atol)
+# Logits (of magnitude ~1) of the serve model in f32 with TF32 off differ
+# between two paths only in summation order across 22 layers; bf16 is held to
+# the tolerance of tests/test_models.py's decode-matches-prefill check.
+LOGIT_TOL = {torch.float32: 2e-3, torch.bfloat16: 1e-1}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def require(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# Timing
+# ---------------------------------------------------------------------------
+
+_FLUSH = None
+
+
+def time_ms(fn, reps=20, warmup=3):
+    """Per-call times of ``fn`` in ms, with L2 flushed before each call so
+    that inputs come from device memory: ``device``, the summed duration of
+    the CUDA kernels (and memsets/copies) it ran, from a torch.profiler
+    trace; ``span``, CUDA events around each call, which also counts the
+    host's launch overhead where the host is slower than the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(reps):
+        _FLUSH.bitwise_not_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    span = sum(s.elapsed_time(e) for s, e in events) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            _FLUSH.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and "bitwise_not" not in e.name)
+    require(device_us > 0, "the profiler trace holds the timed function's kernels")
+    return device_us / 1e3 / reps, span
+
+
+def timing(shape, kernel, plain, library, *, flops, nbytes, peak):
+    """Times of a kernel, its plain version and the library call on one
+    input, beside the least time the card could take for the same work: the
+    larger of ``flops`` at ``peak`` and ``nbytes`` (each input read once, each
+    output written once) at the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = {"shape": shape, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        row[key], row[key.replace("ms", "span_ms")] = time_ms(fn)
+    return row
+
+
+def device_time(fn, calls):
+    """Device time per call of ``fn`` from a torch.profiler trace: the summed
+    duration of the CUDA kernels it ran, and the top kernels by time. None
+    when the trace holds no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    if not by_name:
+        return None, None
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return sum(by_name.values()), {k[:80]: v for k, v in top.items()}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def compare(name, shape, out, want):
+    rtol, atol = TOL[want.dtype]
+    err = (out.float() - want.float()).abs()
+    limit = atol + rtol * want.float().abs()
+    ok = bool(torch.isfinite(out.float()).all()) and bool((err <= limit).all())
+    row = {"shape": shape, "dtype": str(want.dtype).removeprefix("torch."),
+           "max_abs_err": float(err.max()), "rtol": rtol, "atol": atol, "ok": ok}
+    require(ok, f"{name} {row} disagrees with its plain version")
+    return row
+
+
+def check_kernels(port):
+    ops, F = port["ops"], torch.nn.functional
+    fa, da, rms = port["fa"], port["da"], port["rms"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    results = {}
+
+    # K1: rows = B*S at prefill, B at decode; d = 2050 takes the scalar path.
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, d in ((BATCH * PROMPT_LEN, 2048), (BATCH, 2048), (7, 2050)):
+            x, w = rnd(rows, d, dtype=dtype), rnd(d, dtype=dtype)
+            checks.append(compare("fused_rmsnorm", [rows, d], ops.fused_rmsnorm(x, w),
+                                  rms.rmsnorm_rows_plain(x, w)))
+    timings = []
+    for rows in (BATCH * PROMPT_LEN, BATCH):  # prefill and decode rows
+        x = rnd(rows, 2048, dtype=torch.bfloat16)
+        w = rnd(2048, dtype=torch.bfloat16)
+        timings.append(timing(
+            [rows, 2048], lambda: ops.fused_rmsnorm(x, w),
+            lambda: rms.rmsnorm_rows_plain(x, w),
+            lambda: F.rms_norm(x, (x.shape[-1],), w, 1e-5),
+            flops=4 * x.numel(), nbytes=nbytes(x, w, x), peak=PEAK_F32_FLOPS))
+    results["fused_rmsnorm"] = dict(checks=checks, timings=timings)
+
+    # K2: the prefill shape and a ragged one (S = T = 77, no block divides).
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, kv, d in ((BATCH, PROMPT_LEN, 32, 4, 64), (3, 77, 32, 4, 64)):
+            q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, s, kv, d, dtype=dtype), \
+                rnd(b, s, kv, d, dtype=dtype)
+            checks.append(compare("flash_attention", [b, s, h, kv, d],
+                                  ops.flash_attention(q, k, v, causal=True),
+                                  fa.flash_attention_plain(q, k, v, causal=True)))
+    b, s, h, kv, d = BATCH, PROMPT_LEN, 32, 4, 64
+    dt = torch.bfloat16
+    q, k, v = rnd(b, s, h, d, dtype=dt), rnd(b, s, kv, d, dtype=dt), rnd(b, s, kv, d, dtype=dt)
+    pairs = s * (s + 1) // 2  # causal (query, key) pairs per head
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    results["flash_attention"] = dict(checks=checks, timings=[timing(
+        [b, s, h, kv, d], lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: fa.flash_attention_plain(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+        flops=4 * b * h * d * pairs, nbytes=nbytes(q, k, v, q), peak=PEAK_BF16_FLOPS)])
+
+    # K3: the decode cache (T = prompt + new tokens) and a ragged one with a
+    # zero length.
+    checks = []
+    t_serve = PROMPT_LEN + NEW_TOKENS
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, lens in ((BATCH, t_serve, [t_serve - NEW_TOKENS // 2] * BATCH),
+                           (3, 100, [0, 37, 99])):
+            q, k, v = rnd(b, 1, 32, 64, dtype=dtype), rnd(b, t, 4, 64, dtype=dtype), \
+                rnd(b, t, 4, 64, dtype=dtype)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out = ops.flash_decode(q, k, v, lengths)
+            checks.append(compare("flash_decode", [b, t, 32, 4, 64, lens], out,
+                                  da.decode_attention_plain(q, k, v, lengths)))
+            require(all(float(out[i].abs().max()) == 0 for i, n in enumerate(lens) if n == 0),
+                    "flash_decode: a zero length must give zeros")
+    b, t, h, kv, d = BATCH, t_serve, 32, 4, 64
+    n = t_serve - NEW_TOKENS // 2  # the mid-generation cache length
+    q, k, v = rnd(b, 1, h, d, dtype=dt), rnd(b, t, kv, d, dtype=dt), rnd(b, t, kv, d, dtype=dt)
+    lengths = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    read = 2 * b * n * kv * d * k.element_size()  # the K and V rows below the length
+    qt, kt, vt = q.transpose(1, 2), k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+    results["flash_decode"] = dict(checks=checks, timings=[timing(
+        [b, t, h, kv, d, n], lambda: ops.flash_decode(q, k, v, lengths),
+        lambda: da.decode_attention_plain(q, k, v, lengths),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
+        flops=4 * b * h * d * n, nbytes=read + 2 * nbytes(q) + nbytes(lengths),
+        peak=PEAK_BF16_FLOPS)])
+
+    for name, r in results.items():
+        log(json.dumps({"kernel": name, **r}))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serving at full width
+# ---------------------------------------------------------------------------
+
+
+def logits_close(name, got, want, dtype):
+    tol = LOGIT_TOL[dtype]
+    err = float((got - want).abs().max())
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    log(json.dumps({"check": name, "dtype": str(dtype).removeprefix("torch."),
+                    "max_abs_err": err, "atol": tol}))
+    require(finite and err <= tol, f"{name}: max abs err {err} > {tol}")
+    # Where prefill's top logit leads by more than twice the tolerance, the
+    # greedy token must agree.
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    require(bool((got.argmax(-1) == want.argmax(-1))[sure].all()),
+            f"{name}: greedy tokens differ where the margin exceeds the tolerance")
+
+
+def serve(port, device_name):
+    cfg_mod, models, serving, ops = port["configs"], port["models"], port["serving"], port["ops"]
+    cfg = cfg_mod.get_config(ARCH)
+    require(cfg.n_layers == 22 and cfg.d_model == 2048, "tinyllama-1.1b at full width")
+    model = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                               device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = serving.ServeEngine(cfg, model, batch_size=BATCH, device="cuda")
+    require(engine.run.attention_impl == "flash", "the engine defaults to the kernels")
+    tok_gen = torch.Generator().manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN), generator=tok_gen).tolist()
+
+    engine.generate(prompts[:1], max_new_tokens=2)  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    require([r.request_id for r in results] == list(range(REQUESTS)), "one result per request")
+    require(all(len(r.tokens) == NEW_TOKENS and all(0 <= x < cfg.vocab for x in r.tokens)
+                for r in results), "64 in-vocabulary tokens per request")
+    waves, steps = REQUESTS // BATCH, NEW_TOKENS - 1
+    expect = {"fused_rmsnorm": waves * (1 + steps) * (2 * cfg.n_layers + 1),
+              "flash_attention": waves * cfg.n_layers,
+              "flash_decode": waves * steps * cfg.n_layers}
+    log(json.dumps({"launches": launches, "expected": expect}))
+    require(all(launches[k] > 0 for k in expect), "every kernel ran on the serve path")
+    require(launches == expect, "kernel launches match the path's structure")
+
+    # Per-phase times of one wave, on the same prompts.
+    run = engine.run
+    tokens = torch.tensor(prompts[:BATCH], device="cuda")
+    with torch.inference_mode():
+        _, prefill_ms = time_ms(lambda: models.prefill(model, cfg, run, tokens,
+                                                       max_len=PROMPT_LEN + NEW_TOKENS),
+                                reps=5, warmup=1)
+        logits, cache = models.prefill(model, cfg, run, tokens, max_len=PROMPT_LEN + NEW_TOKENS)
+        cur = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            logits, cache = models.decode_step(model, cfg, run, cache, cur)
+            cur = logits[:, -1].argmax(-1)[:, None]
+        end.record()
+        torch.cuda.synchronize()
+        decode_ms = start.elapsed_time(end) / steps
+
+    prefill_busy, prefill_top = device_time(
+        lambda: models.prefill(model, cfg, run, tokens, max_len=PROMPT_LEN + NEW_TOKENS), 1)
+    with torch.inference_mode():
+        decode_busy, decode_top = device_time(
+            lambda: models.decode_step(model, cfg, run, cache, cur), 8)
+
+    summary = {"model": ARCH, "params": n_params, "requests": REQUESTS,
+               "prompt_len": PROMPT_LEN, "batch": BATCH, "new_tokens": NEW_TOKENS,
+               "wall_s": wall, "tok_per_s": REQUESTS * NEW_TOKENS / wall,
+               "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+               "decode_tok_per_s": BATCH / decode_ms * 1e3,
+               "prefill_device_ms": prefill_busy, "decode_device_ms_per_step": decode_busy,
+               "decode_device_idle_share":
+                   None if decode_busy is None else 1 - decode_busy / decode_ms,
+               "prefill_top_kernels_ms": prefill_top, "decode_top_kernels_ms_per_step": decode_top,
+               "max_memory_allocated": peak, "device": device_name}
+    log(json.dumps({"serve": summary}))
+
+    # Logits of three runs per path: prefill on the prompt less its last
+    # token, one decode step on that token, and prefill on the whole prompt.
+    # Paths: the kernels in bf16 and in f32, and the plain path (eager layers,
+    # no kernel) in bf16 and in f32, on one set of weights (the f32 model is
+    # the bf16 one upcast, so f32 holds it exactly). TF32 is off.
+    del engine, results, cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    plain_run = cfg_mod.RunConfig(attention_impl="chunked", attention_chunk=64)
+    model32 = copy.deepcopy(model).float()
+
+    def three(m, r):
+        with torch.inference_mode():
+            pre, c = models.prefill(m, cfg, r, tokens[:, :-1], max_len=PROMPT_LEN)
+            dec, _ = models.decode_step(m, cfg, r, c, tokens[:, -1:])
+            full, _ = models.prefill(m, cfg, r, tokens)
+        return pre[:, 0], dec[:, 0], full[:, -1]
+
+    k32, p32 = three(model32, run), three(model32, plain_run)
+    k16, p16 = three(model, run), three(model, plain_run)
+    del model32
+
+    # Teacher-forced decode on the kernel path: the step's logits equal the
+    # prefill logits of the same prefix.
+    logits_close("decode_matches_prefill", k32[1], k32[2], torch.float32)
+    logits_close("decode_matches_prefill", k16[1], k16[2], torch.bfloat16)
+    # Kernel path against the plain path on the same tokens.
+    for i, what in enumerate(("prefill", "decode")):
+        logits_close(f"{what}_kernels_vs_plain", k32[i], p32[i], torch.float32)
+        # In bf16 the plain path rounds attention probabilities to bf16 (as
+        # the reference does) where the kernels keep them in f32, so the two
+        # differ by more than either differs from f32. Hold the kernel path
+        # to the plain path's own bf16 error against the f32 plain path.
+        err_k = float((k16[i] - p32[i]).abs().max())
+        err_p = float((p16[i] - p32[i]).abs().max())
+        log(json.dumps({"check": f"{what}_bf16_error_vs_f32", "kernels": err_k,
+                        "plain": err_p, "limit": 2 * err_p}))
+        require(err_k <= 2 * err_p, f"{what}: bf16 kernel path error {err_k} "
+                                    f"exceeds twice the plain path's {err_p}")
+    return summary, launches
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device; this script runs on the GPU only")
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    port = {
+        "build": importlib.import_module("repro_torch.kernels._build"),
+        "ops": importlib.import_module("repro_torch.kernels.ops"),
+        "rms": importlib.import_module("repro_torch.kernels.rmsnorm"),
+        "fa": importlib.import_module("repro_torch.kernels.flash_attention"),
+        "da": importlib.import_module("repro_torch.kernels.decode_attention"),
+        "configs": importlib.import_module("repro_torch.configs"),
+        "models": importlib.import_module("repro_torch.models"),
+        "serving": importlib.import_module("repro_torch.serving"),
+    }
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    log(smi)
+    log(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
+                    "device": name, "count": torch.cuda.device_count()}))
+
+    t0 = time.perf_counter()
+    build_logs = port["build"].build()
+    log(json.dumps({"build_s": time.perf_counter() - t0, "built": sorted(build_logs)}))
+    for src, text in build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {src}: {line.strip()}")
+
+    kernels = check_kernels(port)
+    _, launches = serve(port, name)
+
+    sources = {
+        "fused_rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),
+        "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:79"),
+        "flash_decode": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:63"),
+    }
+    rows = []
+    for kname, (src, replaces) in sources.items():
+        k = kernels[kname]
+        t = k["timings"][0]
+        rows.append({"name": kname, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
+                     "launches": launches[kname],
+                     "max_abs_err": max(c["max_abs_err"] for c in k["checks"]),
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "shape": t["shape"]})
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                          "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,5 @@
+from repro_torch.kernels.ops import (LAUNCHES, flash_attention, flash_decode,
+                                     fused_rmsnorm, reset_launches)
+
+__all__ = ["LAUNCHES", "flash_attention", "flash_decode", "fused_rmsnorm",
+           "reset_launches"]

@@ -1,0 +1,112 @@
+"""Flash attention (prefill): the CUDA kernel and its plain version.
+
+Both take the model's layouts, q (B,S,H,D) against k/v (B,T,K,D) with
+H a multiple of K, and read KV head ``h // (H/K)`` for query head h: no KV
+head is copied and nothing is transposed. Both mask the ragged edge, so any
+S and T work, skip KV tiles no query can see, and give 0 for a query that
+sees no key. The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
+``repro/kernels/flash_attention.py:flash_attention_bhsd``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+HEAD_DIMS = (32, 64, 128)
+BLOCK_K = 32  # keys per KV tile, as in the kernel
+NEG_INF = -1e30
+
+
+def _visible(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+             window: int) -> torch.Tensor:
+    """(S, Tk) mask of the keys each query may attend to."""
+    mask = torch.ones(qpos.shape[0], kpos.shape[0], dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The kernel's algorithm in PyTorch: online softmax over KV tiles of
+    ``BLOCK_K`` keys with f32 running max, sum and accumulator."""
+    b, s, h, d = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    scale = 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, s, n_kv, g, d)
+    qpos = torch.arange(s, device=q.device)
+    m = torch.full((b, n_kv, g, s), NEG_INF, device=q.device)
+    l = torch.zeros((b, n_kv, g, s), device=q.device)
+    acc = torch.zeros((b, n_kv, g, s, d), device=q.device)
+    hi = min(t, s) if causal else t
+    for t0 in range(0, hi, BLOCK_K):
+        kt = k[:, t0:t0 + BLOCK_K].float()
+        vt = v[:, t0:t0 + BLOCK_K].float()
+        kpos = torch.arange(t0, t0 + kt.shape[1], device=q.device)
+        valid = _visible(qpos, kpos, causal, window)
+        sc = torch.einsum("bskgd,btkd->bkgst", qg, kt) * scale
+        sc = sc.masked_fill(~valid, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None]).masked_fill(~valid, 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, vt)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"flash attention kernel needs q, k, v on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention kernel takes one of f32/bf16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash attention kernel needs q (B,S,H,D) and k/v "
+                         f"(B,T,K,D), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2] != 0:
+        raise ValueError(f"flash attention kernel: k/v {tuple(k.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes D in {HEAD_DIMS}, got {d}")
+    vec = 16 // q.element_size()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1 or x.stride(2) != d or x.stride(0) % vec or x.stride(1) % vec:
+            raise ValueError(f"flash attention kernel needs {name} with unit "
+                             f"stride over D, heads D apart and 16-byte aligned "
+                             f"rows, got strides {x.stride()}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Launch the kernel; the output is a new contiguous (B,S,H,D) tensor."""
+    _check(q, k, v)
+    b, s, h, d = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0 or t == 0:
+        return out.zero_()
+    P, I, L, F = _build.P, _build.I, _build.L, _build.F
+    fn = _build.entry("flash_attention", f"repro_flash_attention_{DTYPES[q.dtype]}",
+                      [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L,
+                       I, I, F, P])
+    _build.check("flash_attention", fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, s, t, h, n_kv, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        int(causal), int(window), 1.0 / math.sqrt(d), _build.stream()))
+    return out

@@ -1,0 +1,66 @@
+"""Public wrappers of the port's kernels, in the model's layouts.
+
+A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
+to the CUDA kernel, or the wrapper raises. Nothing falls back from one to the
+other. ``LAUNCHES`` counts, per wrapper, the kernels it has launched; a plain
+version adds nothing to it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
+from repro_torch.kernels.rmsnorm import rmsnorm_rows_cuda, rmsnorm_rows_plain
+
+LAUNCHES: Dict[str, int] = {"fused_rmsnorm": 0, "flash_attention": 0,
+                            "flash_decode": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """x (..., d) RMSNorm with learned scale w (d,)."""
+    if not x.is_cuda:
+        return rmsnorm_rows_plain(x, w, eps)
+    out = rmsnorm_rows_cuda(x.reshape(-1, x.shape[-1]), w, eps)
+    LAUNCHES["fused_rmsnorm"] += 1
+    return out.reshape(x.shape)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """q (B,S,H,D); k/v (B,T,K,D) grouped-query -> (B,S,H,D)."""
+    if softcap > 0:
+        raise NotImplementedError(
+            "flash_attention has no logit softcap yet (ROADMAP C: K2 softcap)")
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 lengths: torch.Tensor, *, window: int = 0,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """q (B,1,H,D); k/v cache (B,T,K,D); lengths (B,) -> (B,1,H,D)."""
+    if window > 0 or softcap > 0:
+        raise NotImplementedError(
+            "flash_decode has no sliding window or logit softcap yet "
+            "(ROADMAP C: K3 window/softcap)")
+    if not q.is_cuda:
+        return decode_attention_plain(q, k_cache, v_cache, lengths)
+    out = decode_attention_cuda(q, k_cache, v_cache, lengths)
+    LAUNCHES["flash_decode"] += 1
+    return out

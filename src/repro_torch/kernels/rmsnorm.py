@@ -1,0 +1,52 @@
+"""Fused RMSNorm with a learned scale: the CUDA kernel and its plain version.
+
+The kernel (``csrc/rmsnorm.cu``) replaces the TPU kernel
+``repro/kernels/rmsnorm.py:rmsnorm_rows``: one warp per row, 16-byte vector
+loads and a warp-shuffle reduction in f32, for any row count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def rmsnorm_rows_plain(x: torch.Tensor, w: torch.Tensor,
+                       eps: float = 1e-5) -> torch.Tensor:
+    """x (..., d), w (d,): ``x * rsqrt(mean(x^2) + eps) * w`` in f32, cast
+    back to x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    if not (x.is_cuda and w.device == x.device):
+        raise ValueError(f"rmsnorm kernel needs x and w on one CUDA device, "
+                         f"got {x.device} and {w.device}")
+    if x.dtype not in DTYPES or w.dtype not in DTYPES:
+        raise TypeError(f"rmsnorm kernel takes f32/bf16, got {x.dtype}, {w.dtype}")
+    if x.dim() != 2 or w.shape != (x.shape[1],):
+        raise ValueError(f"rmsnorm kernel needs x (rows, d) and w (d,), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("rmsnorm kernel needs contiguous x and w")
+
+
+def rmsnorm_rows_cuda(x: torch.Tensor, w: torch.Tensor,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """Launch the kernel on x (rows, d) and w (d,), both on one CUDA device."""
+    _check(x, w)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    fn = _build.entry("rmsnorm",
+                      f"repro_rmsnorm_{DTYPES[x.dtype]}_{DTYPES[w.dtype]}",
+                      [_build.P, _build.P, _build.P, _build.I, _build.I,
+                       _build.F, _build.P])
+    _build.check("rmsnorm", fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                               x.shape[0], x.shape[1], eps, _build.stream()))
+    return out

@@ -1,0 +1,251 @@
+"""Shared model layers: norms, rotary embeddings, attention (naive / chunked
+online-softmax / decode / kernel-backed flash), and gated MLPs.
+
+Functions over tensors and parameter modules, in the layouts of
+``repro.models.layers``: activations (B,S,d), q (B,S,H,D), k/v (B,T,K,D).
+``RunConfig.attention_impl == "flash"`` routes the norm and both attention
+paths through the kernels of ``repro_torch.kernels.ops``; ``chunked`` and
+``naive`` are eager mirrors of the reference. One device and no mesh, so the
+reference's sharding constraints have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+IMPLS = ("flash", "chunked", "naive")
+
+
+def uses_kernels(run) -> bool:
+    """Whether a run config routes through the kernel-backed ops."""
+    if run.attention_impl not in IMPLS:
+        raise ValueError(f"attention_impl must be one of {IMPLS}, "
+                         f"got {run.attention_impl!r}")
+    return run.attention_impl == "flash"
+
+
+# ---------------------------------------------------------------------------
+# Norms / positions
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
+             kernel: bool = False) -> torch.Tensor:
+    """RMSNorm in f32, cast back to x's dtype; ``kernel`` routes it through
+    ``ops.fused_rmsnorm``."""
+    if kernel:
+        return ops.fused_rmsnorm(x, scale, eps=eps)
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
+
+
+def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)  # (D/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _group_query(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B,S,H,D) -> (B,S,K,G,D)."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def naive_attention(q, k, v, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """Materializes the full (S, T) score matrix.
+
+    q: (B,S,H,D); k/v: (B,T,K,D). Returns (B,S,H,D). Products of the
+    storage-dtype operands are summed in f32, and the probabilities are cast
+    to v's dtype before the PV product, as in the reference.
+    """
+    b, s, h, d = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    qg = _group_query(q, n_kv)
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    qpos = torch.arange(s, device=q.device) + q_offset
+    kpos = torch.arange(t, device=q.device)
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(), v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def chunked_attention(q, k, v, chunk: int = 512, causal: bool = True,
+                      window: int = 0, q_offset: int = 0,
+                      softcap: float = 0.0) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (flash-style, eager).
+
+    Falls to :func:`naive_attention` when T is not a multiple of ``chunk``,
+    as the reference does.
+    """
+    b, s, h, d = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    if t % chunk != 0:
+        return naive_attention(q, k, v, causal, window, q_offset, softcap)
+    qg = _group_query(q, n_kv).float()
+    scale = 1.0 / math.sqrt(d)
+    qpos = (torch.arange(s, device=q.device) + q_offset)[:, None]  # (S,1)
+    n_g = h // n_kv
+    m = torch.full((b, n_kv, n_g, s), -1e30, device=q.device)
+    l = torch.zeros((b, n_kv, n_g, s), device=q.device)
+    acc = torch.zeros((b, n_kv, n_g, s, d), device=q.device)
+    for j in range(t // chunk):
+        kj = k[:, j * chunk:(j + 1) * chunk]
+        vj = v[:, j * chunk:(j + 1) * chunk]
+        scores = torch.einsum("bskgd,btkd->bkgst", qg, kj.float()) * scale
+        if softcap > 0:
+            scores = softcap * torch.tanh(scores / softcap)
+        kpos = j * chunk + torch.arange(chunk, device=q.device)[None, :]
+        bias = torch.zeros((s, chunk), device=q.device)
+        if causal:
+            bias = bias.masked_fill(kpos > qpos, -1e30)
+        if window > 0:
+            bias = bias.masked_fill(kpos <= qpos - window, -1e30)
+        scores = scores + bias
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(vj.dtype).float(), vj.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.permute(0, 3, 1, 2, 4)  # (b,s,k,g,d)
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """Single-position attention against a (B,T,K,D) cache.
+
+    q: (B,1,H,D); lengths: (B,) number of valid cache positions (inclusive of
+    the current token).
+    """
+    b, _, h, d = q.shape
+    t, n_kv = k_cache.shape[1], k_cache.shape[2]
+    qg = _group_query(q, n_kv)[:, 0].to(k_cache.dtype)  # (B,K,G,D)
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float()) * scale
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    kpos = torch.arange(t, device=q.device)[None, :]  # (1,T)
+    valid = kpos < lengths[:, None]
+    if window > 0:
+        valid &= kpos >= torch.clamp(lengths[:, None] - window, min=0)
+    scores = scores.masked_fill(~valid[:, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", probs.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projection + rope wrapper)
+# ---------------------------------------------------------------------------
+
+
+def attention_block(
+    params,
+    x: torch.Tensor,
+    cfg,
+    run,
+    positions: torch.Tensor,
+    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_pos: Optional[int] = None,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Returns (output, new_kv); ``params`` holds wq, wk, wv, wo (and
+    q_norm, k_norm under ``cfg.qk_norm``).
+
+    * prefill: ``new_kv`` is this segment's rope'd (K, V).
+    * decode (``kv_cache`` and ``cache_pos`` given): the new token's K/V is
+      written into the cache at ``cache_pos`` in place (the reference returns
+      an updated copy) and ``new_kv`` is the cache.
+    """
+    b, s, _ = x.shape
+    h, k_heads, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kernel = uses_kernels(run)
+
+    q = (x @ params.wq).reshape(b, s, h, d)
+    kk = (x @ params.wk).reshape(b, s, k_heads, d)
+    vv = (x @ params.wv).reshape(b, s, k_heads, d)
+    if cfg.qk_norm:
+        q = rms_norm(q, params.q_norm, cfg.norm_eps, kernel=kernel)
+        kk = rms_norm(kk, params.k_norm, cfg.norm_eps, kernel=kernel)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    kk = apply_rope(kk, positions, cfg.rope_theta)
+
+    if kv_cache is not None:
+        k_cache, v_cache = kv_cache
+        k_cache[:, cache_pos:cache_pos + s] = kk
+        v_cache[:, cache_pos:cache_pos + s] = vv
+        lengths = torch.full((b,), cache_pos + s, dtype=torch.int32, device=x.device)
+        if kernel:
+            out = ops.flash_decode(q, k_cache, v_cache, lengths, window=cfg.window,
+                                   softcap=cfg.attn_logit_softcap)
+        else:
+            out = decode_attention(q, k_cache, v_cache, lengths, window=cfg.window,
+                                   softcap=cfg.attn_logit_softcap)
+        new_kv = (k_cache, v_cache)
+    else:
+        if kernel:
+            out = ops.flash_attention(q, kk, vv, causal=causal, window=cfg.window,
+                                      softcap=cfg.attn_logit_softcap)
+        elif run.attention_impl == "naive":
+            out = naive_attention(q, kk, vv, causal=causal, window=cfg.window,
+                                  softcap=cfg.attn_logit_softcap)
+        else:
+            out = chunked_attention(q, kk, vv, chunk=run.attention_chunk,
+                                    causal=causal, window=cfg.window,
+                                    softcap=cfg.attn_logit_softcap)
+        new_kv = (kk, vv)
+    y = out.reshape(b, s, h * d) @ params.wo
+    return y, new_kv
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_block(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """``params`` holds wi (d, 2*ff for swiglu, split [gate, up]) and wo."""
+    if act == "swiglu":
+        gate, up = (x @ params.wi).chunk(2, dim=-1)
+        hidden = F.silu(gate) * up
+    else:
+        hidden = F.gelu(x @ params.wi, approximate="tanh")  # jax.nn.gelu
+    return hidden @ params.wo

@@ -1,0 +1,103 @@
+"""Batched serving engine: continuous-batching prefill + decode loop.
+
+Requests are left-padded (with token 0, which is attended, as in the
+reference) into waves of at most ``batch_size``; a wave runs prefill, then
+greedy decode steps until every request has its tokens or hit ``eos_id``,
+and the next wave takes the freed slots. The semantics are those of
+``repro.serving.engine.ServeEngine``; the default run config routes the model
+through the kernel-backed ops (``attention_impl="flash"``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import Device, resolve_device
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models.transformer import Cache, Transformer, decode_step, init_cache, prefill
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    request_id: int
+    prompt: List[int]
+    tokens: List[int]
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params: Transformer, *,
+                 run: Optional[RunConfig] = None, batch_size: int = 4,
+                 max_len: int = 512, device: Device = None):
+        self.device = resolve_device(device)
+        param_device = next(params.parameters()).device
+        if param_device.type != self.device.type:
+            raise ValueError(f"model weights are on {param_device}, engine "
+                             f"device is {self.device}")
+        self.cfg = cfg
+        self.run = run or RunConfig(attention_impl="flash", attention_chunk=64,
+                                    remat="none", zero=False)
+        self.params = params
+        self.batch_size = batch_size
+        self.max_len = max_len
+
+    def generate(self, prompts: List[List[int]], max_new_tokens: int = 16,
+                 eos_id: Optional[int] = None) -> List[GenerationResult]:
+        """Generate for a list of prompts with continuous batching."""
+        results = []
+        queue = list(enumerate(prompts))
+        with torch.inference_mode():
+            while queue:
+                wave = queue[:self.batch_size]
+                queue = queue[self.batch_size:]
+                results.extend(self._run_wave(wave, max_new_tokens, eos_id))
+        return sorted(results, key=lambda r: r.request_id)
+
+    def _run_wave(self, wave, max_new_tokens, eos_id):
+        b = len(wave)
+        plen = max(len(p) for _, p in wave)
+        tokens = np.zeros((b, plen), np.int64)
+        for i, (_, p) in enumerate(wave):
+            tokens[i, plen - len(p):] = p  # left-pad
+
+        # The cache is sized for the whole generation budget up front.
+        logits, cache = prefill(self.params, self.cfg, self.run,
+                                torch.from_numpy(tokens).to(self.device),
+                                max_len=plen + max_new_tokens)
+        cache = self._grow_cache(cache, plen + max_new_tokens, b)
+
+        out_tokens = [[] for _ in range(b)]
+        done = [False] * b
+        cur = logits[:, -1].argmax(dim=-1)
+        for step in range(max_new_tokens):
+            for i, tok in enumerate(cur.tolist()):
+                if not done[i]:
+                    out_tokens[i].append(tok)
+                    if eos_id is not None and tok == eos_id:
+                        done[i] = True
+            # The reference also decodes after the last token and drops the
+            # result; skipping that step changes no token.
+            if all(done) or step == max_new_tokens - 1:
+                break
+            logits, cache = decode_step(self.params, self.cfg, self.run, cache,
+                                        cur[:, None])
+            cur = logits[:, -1].argmax(dim=-1)
+
+        return [GenerationResult(request_id=rid, prompt=list(p),
+                                 tokens=out_tokens[i])
+                for i, (rid, p) in enumerate(wave)]
+
+    def _grow_cache(self, cache: Cache, new_len: int, batch: int) -> Cache:
+        """A cache of at least ``new_len`` positions holding ``cache``'s."""
+        old_len = cache["k"].shape[2]
+        if old_len >= new_len:
+            return cache
+        grown = init_cache(self.cfg, batch, new_len, device=cache["k"].device,
+                           dtype=cache["k"].dtype)
+        for key in ("k", "v"):
+            grown[key][:, :, :old_len] = cache[key]
+        grown["pos"] = cache["pos"]
+        return grown

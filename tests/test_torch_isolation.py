@@ -1,0 +1,93 @@
+"""The port stands alone: no module of ``repro_torch`` (nor chip_smoke.py)
+imports ``jax`` or ``repro``, and with no CUDA device the entry points raise
+instead of running on the CPU. Each check runs in a fresh interpreter."""
+
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
+    for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+
+
+def _python(code, cwd=ROOT, **env):
+    full_env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **env)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=cwd, env=full_env)
+
+
+def _needs_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def test_module_list_covers_the_slice():
+    for name in ("repro_torch.kernels.ops", "repro_torch.models.transformer",
+                 "repro_torch.serving.engine", "repro_torch.launch.serve"):
+        assert name in MODULES
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "sys.path.insert(0, '.')\n"
+            "import chip_smoke\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+            "print('BAD', bad)\n")
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout
+
+
+def test_entry_points_raise_without_a_card():
+    _needs_no_card()
+    code = ("from repro_torch.configs import get_config, tiny_variant\n"
+            "from repro_torch.models import Transformer, init_cache\n"
+            "from repro_torch.serving import ServeEngine\n"
+            "cfg = tiny_variant(get_config('tinyllama-1.1b'))\n"
+            "model = Transformer(cfg, device='cpu')\n"
+            "for fn in (lambda: ServeEngine(cfg, model), lambda: Transformer(cfg),\n"
+            "           lambda: init_cache(cfg, 1, 8)):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as exc:\n"
+            "        assert 'no CUDA device' in str(exc), exc\n"
+            "    else:\n"
+            "        raise SystemExit('ran on the CPU without being asked')\n"
+            "print('RAISED')\n")
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RAISED" in proc.stdout
+
+
+def test_serve_cli_raises_without_a_card():
+    _needs_no_card()
+    proc = _python("from repro_torch.launch.serve import main; "
+                   "main(['--requests', '1', '--max-new-tokens', '1'])")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "tok/s" not in proc.stdout
+
+
+def test_chip_smoke_fails_without_a_card():
+    _needs_no_card()
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
+                          text=True, timeout=120, cwd=tmp_path, env=env)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,214 @@
+"""The port's kernels (plain versions, on the CPU) against the JAX package:
+the Pallas kernels in interpret mode over the sweeps of test_kernels.py, and
+``repro.kernels.ref`` on ragged shapes the Pallas kernels cannot take.
+
+Tolerances are those of test_kernels.py: f32 2e-5 (summation order), bf16
+2e-2 (one bf16 rounding of the output)."""
+
+import importlib
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as jax_flash
+from repro.kernels import flash_decode as jax_decode
+from repro.kernels import fused_rmsnorm as jax_rmsnorm
+from repro.kernels import ref as jax_ref
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as torch_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+da = importlib.import_module("repro_torch.kernels.decode_attention")
+rms = importlib.import_module("repro_torch.kernels.rmsnorm")
+
+
+def _inputs(seed, dtype, *shapes):
+    """The same values for both packages (bf16 rounds the same way in both)."""
+    rng = np.random.default_rng(seed)
+    jdt, tdt, _ = DTYPES[dtype]
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _close(torch_out, jax_out, tol):
+    np.testing.assert_allclose(torch_out.float().numpy(),
+                               np.asarray(jax_out, np.float32), rtol=tol, atol=tol)
+
+
+def _flat_ref(q, k, v, causal, window=0):
+    """repro.kernels.ref.flash_attention_ref in the model layout (B,S,H,D)."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    kq = jnp.repeat(k, g, axis=2).transpose(0, 2, 1, 3).reshape(b * h, -1, d)
+    vq = jnp.repeat(v, g, axis=2).transpose(0, 2, 1, 3).reshape(b * h, -1, d)
+    qf = q.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+    out = jax_ref.flash_attention_ref(qf, kq, vq, causal=causal, window=window)
+    return out.reshape(b, h, s, d).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("s,h,kh,d,bq,bk", [
+    (128, 4, 4, 64, 64, 64),    # MHA
+    (256, 4, 2, 64, 128, 128),  # GQA 2:1
+    (256, 8, 1, 128, 128, 64),  # MQA, D=128
+])
+def test_flash_attention_matches_pallas(dtype, s, h, kh, d, bq, bk):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(0, dtype, (2, s, h, d), (2, s, kh, d),
+                                         (2, s, kh, d))
+    want = jax_flash(jq, jk, jv, causal=True, block_q=bq, block_k=bk, interpret=True)
+    _close(ops.flash_attention(tq, tk, tv, causal=True), want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("kwargs", [dict(causal=False), dict(causal=True, window=64)])
+def test_flash_attention_non_causal_and_windowed(kwargs):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(1, "float32", *[(1, 256, 2, 64)] * 3)
+    want = jax_flash(jq, jk, jv, block_q=64, block_k=64, interpret=True, **kwargs)
+    _close(ops.flash_attention(tq, tk, tv, **kwargs), want, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("s,t,h,kh,d,causal,window", [
+    (5, 5, 4, 2, 32, True, 0),       # the serve tests' left-padded prompts
+    (77, 77, 8, 2, 64, True, 0),     # S, T not multiples of any block
+    (40, 130, 4, 1, 128, False, 0),  # S != T
+    (100, 100, 4, 4, 64, True, 17),  # ragged sliding window
+])
+def test_flash_attention_ragged_matches_ref(dtype, s, t, h, kh, d, causal, window):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(2, dtype, (2, s, h, d), (2, t, kh, d),
+                                         (2, t, kh, d))
+    want = _flat_ref(jq, jk, jv, causal, window)
+    _close(ops.flash_attention(tq, tk, tv, causal=causal, window=window), want,
+           DTYPES[dtype][2])
+
+
+def _decode_inputs(seed, dtype, b, t, h, kh, d, lengths):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(seed, dtype, (b, 1, h, d), (b, t, kh, d),
+                                         (b, t, kh, d))
+    lens = np.asarray(lengths, np.int32)
+    return (jq, jk, jv, jnp.asarray(lens)), (tq, tk, tv, torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t,h,kh,d,bk", [
+    (512, 4, 4, 64, 128),
+    (1024, 8, 2, 128, 256),
+    (512, 4, 1, 64, 512),
+])
+def test_flash_decode_matches_pallas(dtype, t, h, kh, d, bk):
+    jx, tx = _decode_inputs(3, dtype, 2, t, h, kh, d, [t // 3, t])
+    want = jax_decode(*jx, block_k=bk, interpret=True)
+    _close(ops.flash_decode(*tx), want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t,h,kh,d,lengths", [
+    (576, 32, 4, 64, [513, 1, 65, 576]),  # the serve shape: T = plen + new tokens
+    (100, 8, 2, 128, [1, 37, 99]),
+    (70, 4, 4, 32, [70, 33]),
+])
+def test_flash_decode_ragged_matches_ref(dtype, t, h, kh, d, lengths):
+    (jq, jk, jv, jl), tx = _decode_inputs(4, dtype, len(lengths), t, h, kh, d, lengths)
+    b, g = len(lengths), h // kh
+    want = jax_ref.decode_attention_ref(
+        jq[:, 0].reshape(b * kh, g, d),
+        jk.transpose(0, 2, 1, 3).reshape(b * kh, t, d),
+        jv.transpose(0, 2, 1, 3).reshape(b * kh, t, d),
+        jnp.repeat(jl, kh)).reshape(b, h, d)[:, None]
+    _close(ops.flash_decode(*tx), want, DTYPES[dtype][2])
+
+
+def test_flash_decode_zero_length_gives_zeros_like_pallas():
+    jx, tx = _decode_inputs(5, "float32", 2, 128, 4, 2, 64, [0, 128])
+    want = jax_decode(*jx, block_k=64, interpret=True)
+    out = ops.flash_decode(*tx)
+    assert float(np.abs(np.asarray(want[0])).max()) == 0.0
+    assert float(out[0].abs().max()) == 0.0
+    _close(out, want, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(8, 128), (4, 32, 256), (3, 5, 64), (7, 2048)])
+def test_rmsnorm_matches_pallas(dtype, shape):
+    (jx,), (tx,) = _inputs(6, dtype, shape)
+    rng = np.random.default_rng(7)
+    w = rng.standard_normal(shape[-1]).astype(np.float32)
+    want = jax_rmsnorm(jx, jnp.asarray(w), interpret=True)
+    _close(ops.fused_rmsnorm(tx, torch.from_numpy(w)), want, DTYPES[dtype][2])
+
+
+def test_torch_ref_matches_jax_ref():
+    (jq, jk, jv), (tq, tk, tv) = _inputs(8, "float32", (4, 50, 32), (4, 70, 32),
+                                         (4, 70, 32))
+    for kwargs in (dict(causal=True), dict(causal=False), dict(causal=True, window=9)):
+        _close(torch_ref.flash_attention_ref(tq, tk, tv, **kwargs),
+               jax_ref.flash_attention_ref(jq, jk, jv, **kwargs), 2e-5)
+    lens = np.asarray([1, 0, 50, 70], np.int32)
+    _close(torch_ref.decode_attention_ref(tq[:, :3], tk, tv, torch.from_numpy(lens)),
+           jax_ref.decode_attention_ref(jq[:, :3], jk, jv, jnp.asarray(lens)), 2e-5)
+    (jx,), (tx,) = _inputs(9, "float32", (6, 40))
+    _close(torch_ref.rmsnorm_ref(tx, tx[0]), jax_ref.rmsnorm_ref(jx, jx[0]), 2e-5)
+
+
+def test_cpu_tensors_never_count_launches():
+    ops.reset_launches()
+    (_, (tq, tk, tv)) = _inputs(10, "float32", (1, 8, 2, 32), (1, 8, 1, 32), (1, 8, 1, 32))
+    ops.flash_attention(tq, tk, tv)
+    ops.flash_decode(tq[:, :1], tk, tv, torch.tensor([8], dtype=torch.int32))
+    ops.fused_rmsnorm(tq, tq[0, 0, 0])
+    assert ops.LAUNCHES == {"fused_rmsnorm": 0, "flash_attention": 0, "flash_decode": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        rms.rmsnorm_rows_cuda(x, x[0])
+    q = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention_cuda(q[:, :1], q, q, torch.ones(1, dtype=torch.int32))
+
+
+def test_unsupported_options_raise():
+    q = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        ops.flash_attention(q, q, q, softcap=30.0)
+    lens = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="window"):
+        ops.flash_decode(q[:, :1], q, q, lens, window=16)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        ops.flash_decode(q[:, :1], q, q, lens, softcap=30.0)
+
+
+def test_build_names_libraries_by_source_and_headers(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    first = _build._target("k")[1]
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = _build._target("k")[1]
+    assert first != second and second.parent == tmp_path / "build"
+    second.parent.mkdir()
+    second.write_bytes(b"")
+    assert _build.build(["k"]) == {}  # built already: no compiler run
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if pathlib.Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("a CUDA toolkit is installed at /usr/local/cuda")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["rmsnorm"])

@@ -1,0 +1,158 @@
+"""The port's dense decoder against ``repro.models`` on the reference's own
+weights (``init_params`` output converted with ``params_from_jax``), on the
+tiny variant of tinyllama-1.1b (2 layers, d_model 128, 4 heads, 2 KV heads,
+d_head 32).
+
+Tolerances: f32 1e-4 (summation order only); bf16 2e-2 on logits of
+magnitude about 1, a few bf16 steps, because XLA and PyTorch round the bf16
+activations at different places."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import RunConfig as JRun
+from repro.configs import get_config as jax_get_config
+from repro.configs import tiny_variant as jax_tiny
+from repro.models import decode_step as jax_decode_step
+from repro.models import init_params as jax_init_params
+from repro.models import prefill as jax_prefill
+from repro.models.transformer import forward_hidden as jax_forward_hidden
+from repro.serving.engine import ServeEngine as JaxEngine
+from repro_torch.configs import RunConfig, get_config, tiny_variant
+from repro_torch.models import Transformer, decode_step, forward_hidden, prefill
+from repro_torch.models.convert import params_from_jax
+
+IMPLS = ("flash", "chunked", "naive")
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+B, S = 2, 37  # S is a multiple of no attention chunk or kernel block
+JAX_RUN = JRun(attention_impl="chunked", attention_chunk=16, remat="none", zero=False)
+
+
+def _configs(dtype):
+    return (dataclasses.replace(jax_tiny(jax_get_config("tinyllama-1.1b")), dtype=dtype),
+            dataclasses.replace(tiny_variant(get_config("tinyllama-1.1b")), dtype=dtype))
+
+
+@pytest.fixture(scope="module", params=list(TOL))
+def setup(request):
+    dtype = request.param
+    jcfg, cfg = _configs(dtype)
+    params = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    model = params_from_jax(tree, cfg, device="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, size=(B, S))
+    return dtype, jcfg, cfg, params, tree, model, tokens
+
+
+def _run(impl):
+    return RunConfig(attention_impl=impl, attention_chunk=16, remat="none", zero=False)
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_params_from_jax_round_trip(setup):
+    dtype, jcfg, cfg, params, tree, model, _ = setup
+    state = {k: v.float().numpy() for k, v in model.state_dict().items()}
+    np.testing.assert_array_equal(state["embed"], tree["embed"].astype(np.float32))
+    np.testing.assert_array_equal(state["lm_head"], tree["lm_head"].astype(np.float32))
+    layers = tree["layers"]
+    for i in range(cfg.n_layers):
+        for name in ("wq", "wk", "wv", "wo"):
+            np.testing.assert_array_equal(state[f"layers.{i}.attn.{name}"],
+                                          layers["attn"][name][i].astype(np.float32))
+        for name in ("wi", "wo"):
+            np.testing.assert_array_equal(state[f"layers.{i}.mlp.{name}"],
+                                          layers["mlp"][name][i].astype(np.float32))
+        np.testing.assert_array_equal(state[f"layers.{i}.norm1"],
+                                      layers["norm1"][i].astype(np.float32))
+    assert model.embed.dtype == getattr(torch, dtype)
+    assert len(state) == 3 + cfg.n_layers * 8
+
+
+def test_params_from_jax_rejects_mismatched_tree(setup):
+    _, _, cfg, _, tree, _, _ = setup
+    with pytest.raises(ValueError, match="does not match"):
+        params_from_jax(tree, dataclasses.replace(cfg, d_ff=2 * cfg.d_ff), device="cpu")
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_forward_hidden_matches_reference(setup, impl):
+    dtype, jcfg, cfg, params, _, model, tokens = setup
+    want, _ = jax_forward_hidden(params, jcfg, JAX_RUN, jnp.asarray(tokens))
+    with torch.inference_mode():
+        got, _ = forward_hidden(model, cfg, _run(impl), torch.from_numpy(tokens))
+    _close(got.float(), jnp.asarray(want, jnp.float32), TOL[dtype])
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_prefill_and_decode_match_reference(setup, impl):
+    dtype, jcfg, cfg, params, _, model, tokens = setup
+    want_pre, jcache = jax_prefill(params, jcfg, JAX_RUN, jnp.asarray(tokens[:, :-1]))
+    jcache = JaxEngine(jcfg, params, run=JAX_RUN)._grow_cache(jcache, S + 3, B)
+    want_dec, _ = jax_decode_step(params, jcfg, JAX_RUN, jcache, jnp.asarray(tokens[:, -1:]))
+    with torch.inference_mode():
+        got_pre, cache = prefill(model, cfg, _run(impl), torch.from_numpy(tokens[:, :-1]),
+                                 max_len=S + 3)
+        assert cache["k"].shape == (cfg.n_layers, B, S + 3, cfg.n_kv_heads, cfg.d_head)
+        _close(cache["k"][:, :, :S - 1].float(), jcache["k"][:, :, :S - 1], TOL[dtype])
+        got_dec, cache2 = decode_step(model, cfg, _run(impl), cache,
+                                      torch.from_numpy(tokens[:, -1:]))
+    _close(got_pre, want_pre, TOL[dtype])
+    _close(got_dec, want_dec, TOL[dtype])
+    assert cache2["pos"] == S and got_dec.dtype == torch.float32
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_decode_matches_prefill_logits(setup, impl):
+    """Teacher-forced decode: the step's logits equal prefill's on the prefix."""
+    dtype, _, cfg, _, _, model, tokens = setup
+    t = torch.from_numpy(tokens)
+    with torch.inference_mode():
+        full, _ = prefill(model, cfg, _run(impl), t)
+        _, cache = prefill(model, cfg, _run(impl), t[:, :-1], max_len=S + 4)
+        step, cache2 = decode_step(model, cfg, _run(impl), cache, t[:, -1:])
+    _close(step[:, 0], full[:, -1], TOL[dtype])
+    assert (step[:, 0].argmax(-1) == full[:, -1].argmax(-1)).all()
+    assert cache2["pos"] == S
+
+
+def test_attention_impls_agree(setup):
+    dtype, _, cfg, _, _, model, tokens = setup
+    with torch.inference_mode():
+        outs = [forward_hidden(model, cfg, _run(impl), torch.from_numpy(tokens))[0]
+                for impl in IMPLS]
+    for out in outs[1:]:
+        _close(out.float(), outs[0].float(), TOL[dtype])
+
+
+def test_unknown_attention_impl_raises(setup):
+    _, _, cfg, _, _, model, tokens = setup
+    with pytest.raises(ValueError, match="attention_impl"):
+        forward_hidden(model, cfg, _run("pallas"), torch.from_numpy(tokens))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b", "deepseek-moe-16b",
+                                  "whisper-base", "phi-3-vision-4.2b"])
+def test_other_families_are_not_ported(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Transformer(tiny_variant(get_config(arch)), device="cpu")
+
+
+def test_random_init_is_seeded_and_scaled():
+    cfg = tiny_variant(get_config("tinyllama-1.1b"))
+    a = Transformer(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    b = Transformer(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(pa, pb), name
+    std = a.layers[0].attn.wq.float().std().item()
+    assert 0.018 < std < 0.022
+    assert a.layers[0].norm1.float().eq(1).all()
+    assert a.embed.dtype == torch.bfloat16
