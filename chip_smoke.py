@@ -4,18 +4,23 @@ Needs one CUDA device (it exits non-zero without one, and when the rest of
 the repository is not beside it). It
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
-2. builds the three CUDA kernels of ``src/repro_torch/kernels/csrc`` with
+2. builds the four CUDA kernels of ``src/repro_torch/kernels/csrc`` with
    ``nvcc``, in parallel, and prints the build time and register use;
 3. holds each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the serve path's shapes and at a ragged shape, and times the
-   kernel, the plain version and the one PyTorch library call that computes
-   the same function (timed only; the port never calls it) against the
-   least time the card could take (``bound_ms``);
-4. serves 8 requests of 512 random tokens at batch 4 with 64 new tokens
-   through ``ServeEngine.generate`` on tinyllama-1.1b at full width and
-   depth (bf16, random weights from seed 0), and checks that every kernel
-   ran on that path, that a decode step's logits match prefill's on the same
-   prefix, and that the kernel path matches the plain path in f32 and bf16;
+   and bf16, at the serve paths' shapes (RMSNorm at every width the paths
+   norm, attention at head dims 64 and 80, the SSD step at the zamba2-2.7b
+   and mamba2-130m shapes) and at ragged shapes, and times the kernel, the
+   plain version and the one PyTorch library call that computes the same
+   function, where there is one (timed only; the port never calls it),
+   against the least time the card could take (``bound_ms``), with the
+   card's clocks read after each timing;
+4. serves random prompts through ``ServeEngine.generate`` at full width
+   and depth (bf16, random weights from seed 0): tinyllama-1.1b and
+   zamba2-2.7b with 8 requests of 512 tokens at batch 4 and 64 new tokens,
+   mamba2-130m with 4 such requests and 16 new tokens. For each it checks
+   the exact kernel launches of that run, that a decode step's logits match
+   prefill's on the same prefix, and (tinyllama, zamba2) that the kernel
+   path matches the plain path in f32 and bf16;
 5. prints a JSON line of per-kernel numbers and, last, the JSON result line.
 
 Any failed check raises, so the script exits non-zero before the last line.
@@ -35,15 +40,41 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-ARCH = "tinyllama-1.1b"
 REQUESTS, PROMPT_LEN, BATCH, NEW_TOKENS = 8, 512, 4, 64
+# Serve phases, each on prompts of PROMPT_LEN tokens at batch BATCH: the
+# model at full width and depth (layers, d_model), the requests and new
+# tokens, whether the kernel path is held to the plain path, and the kernel
+# launches of one prefill (K1 at every norm, K2 at every attention layer or
+# shared-block invocation, K4 at every Mamba layer); a decode step launches
+# as many K1, K3 where the prefill launched K2, and no K4.
+# ``bf16_decode_tol`` bounds the bf16 logits of a decode step against
+# prefill's (absolute). tinyllama keeps the 0.1 of tests/test_models.py.
+# zamba2 is held to 0.2: on the H100 its kernel path reads 0.148 and the
+# plain path, which rounds as the reference does, 0.193 (prefill and decode
+# run their products through different cuBLAS kernels, and 63 blocks carry
+# the rounding on), so 0.1 holds at zamba2's depth for no path that rounds
+# as the reference does; f32 holds every path to 2e-3. The plain path's gap
+# is logged beside the check.
+PHASES = (
+    dict(arch="tinyllama-1.1b", layers=22, d_model=2048, requests=REQUESTS,
+         new_tokens=NEW_TOKENS, against_plain=True, bf16_decode_tol=0.1,
+         per_prefill={"fused_rmsnorm": 45, "flash_attention": 22, "ssd_chunk_dual": 0}),
+    dict(arch="zamba2-2.7b", layers=54, d_model=2560, requests=REQUESTS,
+         new_tokens=NEW_TOKENS, against_plain=True, bf16_decode_tol=0.2,
+         per_prefill={"fused_rmsnorm": 2 * 54 + 2 * 9 + 1, "flash_attention": 9,
+                      "ssd_chunk_dual": 54}),
+    dict(arch="mamba2-130m", layers=24, d_model=768, requests=BATCH, new_tokens=16,
+         against_plain=False, bf16_decode_tol=None,
+         per_prefill={"fused_rmsnorm": 2 * 24 + 1, "flash_attention": 0, "ssd_chunk_dual": 24}),
+)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}  # (rtol, atol)
-# Logits (of magnitude ~1) of the serve model in f32 with TF32 off differ
-# between two paths only in summation order across 22 layers; bf16 is held to
-# the tolerance of tests/test_models.py's decode-matches-prefill check.
+SSD_TOL = (1e-4, 1e-4)  # f32 sums over 256 keys and 128 state dims (test_kernels.py)
+# Logits (of magnitude ~1) of a serve model in f32 with TF32 off differ
+# between two paths only in summation order across its layers; bf16 is held
+# to the tolerance of tests/test_models.py's decode-matches-prefill check.
 LOGIT_TOL = {torch.float32: 2e-3, torch.bfloat16: 1e-1}
 
 
@@ -107,8 +138,20 @@ def timing(shape, kernel, plain, library, *, flops, nbytes, peak):
     row = {"shape": shape, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
-        row[key], row[key.replace("ms", "span_ms")] = time_ms(fn)
+        row[key], row[key.replace("ms", "span_ms")] = (None, None) if fn is None else time_ms(fn)
+    row["clocks"] = clocks()
     return row
+
+
+def clocks():
+    """The card's SM and memory clocks (MHz) and its active clock-limit
+    reasons, as nvidia-smi reads them now; the query's error text where this
+    driver does not know a field."""
+    fields = "clocks.sm,clocks.mem,clocks_throttle_reasons.active"
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    text = (out.stdout if out.returncode == 0 else out.stderr or out.stdout).strip()
+    return text.splitlines()[0] if text else f"nvidia-smi exit {out.returncode}"
 
 
 def device_time(fn, calls):
@@ -142,8 +185,8 @@ def nbytes(*tensors):
 # ---------------------------------------------------------------------------
 
 
-def compare(name, shape, out, want):
-    rtol, atol = TOL[want.dtype]
+def compare(name, shape, out, want, tol=None):
+    rtol, atol = tol or TOL[want.dtype]
     err = (out.float() - want.float()).abs()
     limit = atol + rtol * want.float().abs()
     ok = bool(torch.isfinite(out.float()).all()) and bool((err <= limit).all())
@@ -155,7 +198,7 @@ def compare(name, shape, out, want):
 
 def check_kernels(port):
     ops, F = port["ops"], torch.nn.functional
-    fa, da, rms = port["fa"], port["da"], port["rms"]
+    fa, da, rms, ssd = port["fa"], port["da"], port["rms"], port["ssd"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rnd(*shape, dtype):
@@ -163,71 +206,127 @@ def check_kernels(port):
 
     results = {}
 
-    # K1: rows = B*S at prefill, B at decode; d = 2050 takes the scalar path.
+    # K1: rows = B*S at prefill, B at decode, at every width the serve paths
+    # norm: tinyllama 2048; zamba2 2560 (norm1, final_norm) and 5120
+    # (ssm_norm, the shared block's norms); mamba2-130m 768 and 1536.
+    # d = 2050 takes the scalar path.
+    widths = (2048, 2560, 5120, 768, 1536)
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
-        for rows, d in ((BATCH * PROMPT_LEN, 2048), (BATCH, 2048), (7, 2050)):
+        for rows, d in [(r, d) for d in widths for r in (BATCH * PROMPT_LEN, BATCH)] + [(7, 2050)]:
             x, w = rnd(rows, d, dtype=dtype), rnd(d, dtype=dtype)
             checks.append(compare("fused_rmsnorm", [rows, d], ops.fused_rmsnorm(x, w),
                                   rms.rmsnorm_rows_plain(x, w)))
     timings = []
-    for rows in (BATCH * PROMPT_LEN, BATCH):  # prefill and decode rows
-        x = rnd(rows, 2048, dtype=torch.bfloat16)
-        w = rnd(2048, dtype=torch.bfloat16)
+    # tinyllama's prefill and decode rows, then every other width at prefill.
+    for rows, d in [(BATCH * PROMPT_LEN, 2048), (BATCH, 2048)] + \
+            [(BATCH * PROMPT_LEN, d) for d in widths[1:]]:
+        x = rnd(rows, d, dtype=torch.bfloat16)
+        w = rnd(d, dtype=torch.bfloat16)
         timings.append(timing(
-            [rows, 2048], lambda: ops.fused_rmsnorm(x, w),
+            [rows, d], lambda: ops.fused_rmsnorm(x, w),
             lambda: rms.rmsnorm_rows_plain(x, w),
             lambda: F.rms_norm(x, (x.shape[-1],), w, 1e-5),
             flops=4 * x.numel(), nbytes=nbytes(x, w, x), peak=PEAK_F32_FLOPS))
     results["fused_rmsnorm"] = dict(checks=checks, timings=timings)
 
     # K2: the prefill shape and a ragged one (S = T = 77, no block divides).
+    # tinyllama's prefill (D 64, GQA 8:1), zamba2's shared attention (D 80,
+    # 32 KV heads, window 4096) and ragged ones.
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s, h, kv, d in ((BATCH, PROMPT_LEN, 32, 4, 64), (3, 77, 32, 4, 64)):
+        for b, s, h, kv, d, win in ((BATCH, PROMPT_LEN, 32, 4, 64, 0), (3, 77, 32, 4, 64, 0),
+                                    (BATCH, PROMPT_LEN, 32, 32, 80, 4096),
+                                    (3, 77, 32, 32, 80, 0), (2, 100, 8, 8, 80, 17)):
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, s, kv, d, dtype=dtype), \
                 rnd(b, s, kv, d, dtype=dtype)
-            checks.append(compare("flash_attention", [b, s, h, kv, d],
-                                  ops.flash_attention(q, k, v, causal=True),
-                                  fa.flash_attention_plain(q, k, v, causal=True)))
-    b, s, h, kv, d = BATCH, PROMPT_LEN, 32, 4, 64
+            checks.append(compare("flash_attention", [b, s, h, kv, d, win],
+                                  ops.flash_attention(q, k, v, causal=True, window=win),
+                                  fa.flash_attention_plain(q, k, v, causal=True, window=win)))
+    timings = []
     dt = torch.bfloat16
-    q, k, v = rnd(b, s, h, d, dtype=dt), rnd(b, s, kv, d, dtype=dt), rnd(b, s, kv, d, dtype=dt)
-    pairs = s * (s + 1) // 2  # causal (query, key) pairs per head
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    results["flash_attention"] = dict(checks=checks, timings=[timing(
-        [b, s, h, kv, d], lambda: ops.flash_attention(q, k, v, causal=True),
-        lambda: fa.flash_attention_plain(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
-        flops=4 * b * h * d * pairs, nbytes=nbytes(q, k, v, q), peak=PEAK_BF16_FLOPS)])
+    for b, s, h, kv, d in ((BATCH, PROMPT_LEN, 32, 4, 64), (BATCH, PROMPT_LEN, 32, 32, 80)):
+        q, k, v = rnd(b, s, h, d, dtype=dt), rnd(b, s, kv, d, dtype=dt), rnd(b, s, kv, d, dtype=dt)
+        pairs = s * (s + 1) // 2  # causal (query, key) pairs per head
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        timings.append(timing(
+            [b, s, h, kv, d], lambda: ops.flash_attention(q, k, v, causal=True),
+            lambda: fa.flash_attention_plain(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+            flops=4 * b * h * d * pairs, nbytes=nbytes(q, k, v, q), peak=PEAK_BF16_FLOPS))
+    results["flash_attention"] = dict(checks=checks, timings=timings)
 
     # K3: the decode cache (T = prompt + new tokens) and a ragged one with a
     # zero length.
     checks = []
     t_serve = PROMPT_LEN + NEW_TOKENS
     for dtype in (torch.float32, torch.bfloat16):
-        for b, t, lens in ((BATCH, t_serve, [t_serve - NEW_TOKENS // 2] * BATCH),
-                           (3, 100, [0, 37, 99])):
-            q, k, v = rnd(b, 1, 32, 64, dtype=dtype), rnd(b, t, 4, 64, dtype=dtype), \
-                rnd(b, t, 4, 64, dtype=dtype)
+        for b, t, kv, d, lens in ((BATCH, t_serve, 4, 64, [t_serve - NEW_TOKENS // 2] * BATCH),
+                                  (3, 100, 4, 64, [0, 37, 99]),
+                                  (BATCH, t_serve, 32, 80, [t_serve - NEW_TOKENS // 2] * BATCH),
+                                  (3, 100, 32, 80, [0, 37, 99])):
+            q, k, v = rnd(b, 1, 32, d, dtype=dtype), rnd(b, t, kv, d, dtype=dtype), \
+                rnd(b, t, kv, d, dtype=dtype)
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             out = ops.flash_decode(q, k, v, lengths)
-            checks.append(compare("flash_decode", [b, t, 32, 4, 64, lens], out,
+            checks.append(compare("flash_decode", [b, t, 32, kv, d, lens], out,
                                   da.decode_attention_plain(q, k, v, lengths)))
             require(all(float(out[i].abs().max()) == 0 for i, n in enumerate(lens) if n == 0),
                     "flash_decode: a zero length must give zeros")
-    b, t, h, kv, d = BATCH, t_serve, 32, 4, 64
+    timings = []
     n = t_serve - NEW_TOKENS // 2  # the mid-generation cache length
-    q, k, v = rnd(b, 1, h, d, dtype=dt), rnd(b, t, kv, d, dtype=dt), rnd(b, t, kv, d, dtype=dt)
-    lengths = torch.full((b,), n, dtype=torch.int32, device="cuda")
-    read = 2 * b * n * kv * d * k.element_size()  # the K and V rows below the length
-    qt, kt, vt = q.transpose(1, 2), k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
-    results["flash_decode"] = dict(checks=checks, timings=[timing(
-        [b, t, h, kv, d, n], lambda: ops.flash_decode(q, k, v, lengths),
-        lambda: da.decode_attention_plain(q, k, v, lengths),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
-        flops=4 * b * h * d * n, nbytes=read + 2 * nbytes(q) + nbytes(lengths),
-        peak=PEAK_BF16_FLOPS)])
+    for b, t, h, kv, d in ((BATCH, t_serve, 32, 4, 64), (BATCH, t_serve, 32, 32, 80)):
+        q, k, v = rnd(b, 1, h, d, dtype=dt), rnd(b, t, kv, d, dtype=dt), rnd(b, t, kv, d, dtype=dt)
+        lengths = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        read = 2 * b * n * kv * d * k.element_size()  # the K and V rows below the length
+        qt, kt, vt = q.transpose(1, 2), k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+        timings.append(timing(
+            [b, t, h, kv, d, n], lambda: ops.flash_decode(q, k, v, lengths),
+            lambda: da.decode_attention_plain(q, k, v, lengths),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
+            flops=4 * b * h * d * n, nbytes=read + 2 * nbytes(q) + nbytes(lengths),
+            peak=PEAK_BF16_FLOPS))
+    results["flash_decode"] = dict(checks=checks, timings=timings)
+
+    # K4: the prefill shapes of zamba2-2.7b (H 80, N 64) and mamba2-130m
+    # (H 24, N 128), one wave of B 4 x 512 tokens in 2 chunks of 256, with
+    # xdt and cum as the model's (B,NC,Q,H,.) views and B/C slices of one
+    # projection; ragged chunks (Q 77, Q 5); and cum falling by up to 40 a
+    # step, so that exp of the unmasked upper triangle would be inf.
+    def ssd_inputs(b, nc, h, q, p, n, dtype, span=1.0):
+        xdt = rnd(b, nc, q, h, p, dtype=torch.float32) * 0.1
+        cum = -torch.cumsum(torch.rand(b, nc, q, h, generator=gen, device="cuda") * span, dim=2)
+        proj = rnd(b, nc, q, 2 * n + 8, dtype=torch.float32) * 0.3
+        return (xdt.permute(0, 1, 3, 2, 4), cum.permute(0, 1, 3, 2),
+                proj[..., 8:8 + n].to(dtype), proj[..., 8 + n:].to(dtype))
+
+    checks = []
+    zamba, mamba = (BATCH, 2, 80, 256, 64, 64), (BATCH, 2, 24, 256, 64, 128)
+    cases = [(zamba, torch.float32, 1.0), (zamba, torch.bfloat16, 1.0),
+             (mamba, torch.float32, 1.0), (mamba, torch.bfloat16, 1.0),
+             ((2, 3, 8, 77, 64, 64), torch.float32, 1.0), ((2, 1, 8, 5, 64, 64), torch.float32, 1.0),
+             ((1, 1, 8, 256, 64, 64), torch.float32, 40.0)]
+    for shape, dtype, span in cases:
+        args = ssd_inputs(*shape, dtype, span)
+        if span > 1:
+            c = args[1][0, 0, 0]
+            require(bool(torch.isinf(torch.exp(c[:, None] - c[None, :])).any()),
+                    "the overflow case overflows without the mask")
+        got, want = ops.ssd_chunk_dual(*args), ssd.ssd_intra_chunk_plain(*args)
+        for part, g, w in zip(("y", "states"), got, want):
+            checks.append(compare("ssd_chunk_dual", [*shape, str(dtype), span, part], g, w,
+                                  tol=SSD_TOL))
+    timings = []
+    for b, nc, h, q, p, n in (zamba, mamba):
+        args = ssd_inputs(b, nc, h, q, p, n, torch.bfloat16)
+        y, states = ssd.ssd_intra_chunk_plain(*args)
+        pairs = q * (q + 1) // 2  # (i, j) pairs with j <= i per chunk
+        timings.append(timing(
+            [b, nc, h, q, p, n], lambda: ops.ssd_chunk_dual(*args),
+            lambda: ssd.ssd_intra_chunk_plain(*args), None,
+            flops=b * nc * (h * (2 * pairs * p + 2 * q * n * p) + 2 * pairs * n),
+            nbytes=nbytes(*args, y, states), peak=PEAK_F32_FLOPS))
+    results["ssd_chunk_dual"] = dict(checks=checks, timings=timings)
 
     for name, r in results.items():
         log(json.dumps({"kernel": name, **r}))
@@ -239,8 +338,9 @@ def check_kernels(port):
 # ---------------------------------------------------------------------------
 
 
-def logits_close(name, got, want, dtype):
-    tol = LOGIT_TOL[dtype]
+def logits_close(name, got, want, dtype, tol=None):
+    if tol is None:
+        tol = LOGIT_TOL[dtype]
     err = float((got - want).abs().max())
     finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
     log(json.dumps({"check": name, "dtype": str(dtype).removeprefix("torch."),
@@ -254,48 +354,63 @@ def logits_close(name, got, want, dtype):
             f"{name}: greedy tokens differ where the margin exceeds the tolerance")
 
 
-def serve(port, device_name):
+def expected_launches(per_prefill):
+    """Launches of one prefill and of one decode step, from a phase's
+    per-prefill counts."""
+    prefill = dict(per_prefill, flash_decode=0)
+    step = {"fused_rmsnorm": per_prefill["fused_rmsnorm"], "flash_attention": 0,
+            "flash_decode": per_prefill["flash_attention"], "ssd_chunk_dual": 0}
+    return prefill, step
+
+
+def serve(port, device_name, phase):
+    """One serve phase (an entry of PHASES): its requests of PROMPT_LEN
+    random tokens at batch BATCH on its model at full width and depth.
+    Returns the summary and the kernel launches of that run."""
     cfg_mod, models, serving, ops = port["configs"], port["models"], port["serving"], port["ops"]
-    cfg = cfg_mod.get_config(ARCH)
-    require(cfg.n_layers == 22 and cfg.d_model == 2048, "tinyllama-1.1b at full width")
+    arch, requests, new_tokens = phase["arch"], phase["requests"], phase["new_tokens"]
+    cfg = cfg_mod.get_config(arch)
+    require((cfg.n_layers, cfg.d_model) == (phase["layers"], phase["d_model"]),
+            f"{arch} at full width and depth")
     model = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                                device="cuda")
     n_params = sum(p.numel() for p in model.parameters())
     engine = serving.ServeEngine(cfg, model, batch_size=BATCH, device="cuda")
     require(engine.run.attention_impl == "flash", "the engine defaults to the kernels")
     tok_gen = torch.Generator().manual_seed(SEED)
-    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN), generator=tok_gen).tolist()
+    prompts = torch.randint(0, cfg.vocab, (requests, PROMPT_LEN), generator=tok_gen).tolist()
 
     engine.generate(prompts[:1], max_new_tokens=2)  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    results = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    results = engine.generate(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
-    require([r.request_id for r in results] == list(range(REQUESTS)), "one result per request")
-    require(all(len(r.tokens) == NEW_TOKENS and all(0 <= x < cfg.vocab for x in r.tokens)
-                for r in results), "64 in-vocabulary tokens per request")
-    waves, steps = REQUESTS // BATCH, NEW_TOKENS - 1
-    expect = {"fused_rmsnorm": waves * (1 + steps) * (2 * cfg.n_layers + 1),
-              "flash_attention": waves * cfg.n_layers,
-              "flash_decode": waves * steps * cfg.n_layers}
-    log(json.dumps({"launches": launches, "expected": expect}))
-    require(all(launches[k] > 0 for k in expect), "every kernel ran on the serve path")
+    require([r.request_id for r in results] == list(range(requests)), "one result per request")
+    require(all(len(r.tokens) == new_tokens and all(0 <= x < cfg.vocab for x in r.tokens)
+                for r in results), f"{new_tokens} in-vocabulary tokens per request")
+    waves, steps = requests // BATCH, new_tokens - 1
+    per_prefill, per_step = expected_launches(phase["per_prefill"])
+    expect = {k: waves * (per_prefill[k] + steps * per_step[k]) for k in per_prefill}
+    log(json.dumps({"model": arch, "launches": launches, "expected": expect,
+                    "per_prefill": per_prefill, "per_decode_step": per_step}))
+    require(all(launches[k] > 0 for k, v in expect.items() if v),
+            "every kernel of the path ran on the serve run")
     require(launches == expect, "kernel launches match the path's structure")
 
     # Per-phase times of one wave, on the same prompts.
     run = engine.run
     tokens = torch.tensor(prompts[:BATCH], device="cuda")
+    max_len = PROMPT_LEN + new_tokens
     with torch.inference_mode():
-        _, prefill_ms = time_ms(lambda: models.prefill(model, cfg, run, tokens,
-                                                       max_len=PROMPT_LEN + NEW_TOKENS),
+        _, prefill_ms = time_ms(lambda: models.prefill(model, cfg, run, tokens, max_len=max_len),
                                 reps=5, warmup=1)
-        logits, cache = models.prefill(model, cfg, run, tokens, max_len=PROMPT_LEN + NEW_TOKENS)
+        logits, cache = models.prefill(model, cfg, run, tokens, max_len=max_len)
         cur = logits[:, -1].argmax(-1)[:, None]
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -308,14 +423,15 @@ def serve(port, device_name):
         decode_ms = start.elapsed_time(end) / steps
 
     prefill_busy, prefill_top = device_time(
-        lambda: models.prefill(model, cfg, run, tokens, max_len=PROMPT_LEN + NEW_TOKENS), 1)
+        lambda: models.prefill(model, cfg, run, tokens, max_len=max_len), 1)
     with torch.inference_mode():
         decode_busy, decode_top = device_time(
             lambda: models.decode_step(model, cfg, run, cache, cur), 8)
 
-    summary = {"model": ARCH, "params": n_params, "requests": REQUESTS,
-               "prompt_len": PROMPT_LEN, "batch": BATCH, "new_tokens": NEW_TOKENS,
-               "wall_s": wall, "tok_per_s": REQUESTS * NEW_TOKENS / wall,
+    summary = {"model": arch, "family": cfg.family, "layers": cfg.n_layers,
+               "d_model": cfg.d_model, "params": n_params, "requests": requests,
+               "prompt_len": PROMPT_LEN, "batch": BATCH, "new_tokens": new_tokens,
+               "wall_s": wall, "tok_per_s": requests * new_tokens / wall,
                "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
                "decode_tok_per_s": BATCH / decode_ms * 1e3,
                "prefill_device_ms": prefill_busy, "decode_device_ms_per_step": decode_busy,
@@ -326,10 +442,11 @@ def serve(port, device_name):
     log(json.dumps({"serve": summary}))
 
     # Logits of three runs per path: prefill on the prompt less its last
-    # token, one decode step on that token, and prefill on the whole prompt.
-    # Paths: the kernels in bf16 and in f32, and the plain path (eager layers,
-    # no kernel) in bf16 and in f32, on one set of weights (the f32 model is
-    # the bf16 one upcast, so f32 holds it exactly). TF32 is off.
+    # token (511 tokens: the SSD pads its last chunk), one decode step on
+    # that token, and prefill on the whole prompt. Paths: the kernels in
+    # bf16 and in f32, and the plain path (eager layers, no kernel) in bf16
+    # and in f32, on one set of weights (the f32 model is the bf16 one
+    # upcast, so f32 holds it exactly). TF32 is off.
     del engine, results, cache
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -343,27 +460,35 @@ def serve(port, device_name):
             full, _ = models.prefill(m, cfg, r, tokens)
         return pre[:, 0], dec[:, 0], full[:, -1]
 
-    k32, p32 = three(model32, run), three(model32, plain_run)
-    k16, p16 = three(model, run), three(model, plain_run)
-    del model32
-
     # Teacher-forced decode on the kernel path: the step's logits equal the
     # prefill logits of the same prefix.
-    logits_close("decode_matches_prefill", k32[1], k32[2], torch.float32)
-    logits_close("decode_matches_prefill", k16[1], k16[2], torch.bfloat16)
-    # Kernel path against the plain path on the same tokens.
-    for i, what in enumerate(("prefill", "decode")):
-        logits_close(f"{what}_kernels_vs_plain", k32[i], p32[i], torch.float32)
-        # In bf16 the plain path rounds attention probabilities to bf16 (as
-        # the reference does) where the kernels keep them in f32, so the two
-        # differ by more than either differs from f32. Hold the kernel path
-        # to the plain path's own bf16 error against the f32 plain path.
-        err_k = float((k16[i] - p32[i]).abs().max())
-        err_p = float((p16[i] - p32[i]).abs().max())
-        log(json.dumps({"check": f"{what}_bf16_error_vs_f32", "kernels": err_k,
-                        "plain": err_p, "limit": 2 * err_p}))
-        require(err_k <= 2 * err_p, f"{what}: bf16 kernel path error {err_k} "
-                                    f"exceeds twice the plain path's {err_p}")
+    k32 = three(model32, run)
+    p32 = three(model32, plain_run) if phase["against_plain"] else None
+    del model32
+    logits_close(f"{arch}: decode_matches_prefill", k32[1], k32[2], torch.float32)
+    if phase["against_plain"]:
+        k16, p16 = three(model, run), three(model, plain_run)
+        gap = float((p16[1] - p16[2]).abs().max())
+        log(json.dumps({"check": f"{arch}: plain_decode_matches_prefill",
+                        "dtype": "bfloat16", "max_abs_err": gap}))
+        logits_close(f"{arch}: decode_matches_prefill", k16[1], k16[2], torch.bfloat16,
+                     phase["bf16_decode_tol"])
+        # Kernel path against the plain path on the same tokens.
+        for i, what in enumerate(("prefill", "decode")):
+            logits_close(f"{arch}: {what}_kernels_vs_plain", k32[i], p32[i], torch.float32)
+            # In bf16 the plain path rounds attention probabilities to bf16
+            # (as the reference does) where the kernels keep them in f32, so
+            # the two differ by more than either differs from f32. Hold the
+            # kernel path to the plain path's own bf16 error against the f32
+            # plain path.
+            err_k = float((k16[i] - p32[i]).abs().max())
+            err_p = float((p16[i] - p32[i]).abs().max())
+            log(json.dumps({"check": f"{arch}: {what}_bf16_error_vs_f32", "kernels": err_k,
+                            "plain": err_p, "limit": 2 * err_p}))
+            require(err_k <= 2 * err_p, f"{arch} {what}: bf16 kernel path error {err_k} "
+                                        f"exceeds twice the plain path's {err_p}")
+    del model
+    torch.cuda.empty_cache()
     return summary, launches
 
 
@@ -381,6 +506,7 @@ def main() -> int:
         "rms": importlib.import_module("repro_torch.kernels.rmsnorm"),
         "fa": importlib.import_module("repro_torch.kernels.flash_attention"),
         "da": importlib.import_module("repro_torch.kernels.decode_attention"),
+        "ssd": importlib.import_module("repro_torch.kernels.ssd_scan"),
         "configs": importlib.import_module("repro_torch.configs"),
         "models": importlib.import_module("repro_torch.models"),
         "serving": importlib.import_module("repro_torch.serving"),
@@ -403,24 +529,31 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
 
     kernels = check_kernels(port)
-    _, launches = serve(port, name)
+    launches = {}
+    for phase in PHASES:
+        _, run_launches = serve(port, name, phase)
+        for k, v in run_launches.items():
+            launches[k] = launches.get(k, 0) + v
 
     sources = {
         "fused_rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:79"),
         "flash_decode": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:63"),
+        "ssd_chunk_dual": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:57"),
     }
     rows = []
     for kname, (src, replaces) in sources.items():
         k = kernels[kname]
         t = k["timings"][0]
+        keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "clocks")
         rows.append({"name": kname, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
                      "launches": launches[kname],
                      "max_abs_err": max(c["max_abs_err"] for c in k["checks"]),
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                     "shape": t["shape"]})
+                     "shape": t["shape"],
+                     "timings": [{key: r[key] for key in keys} for r in k["timings"]]})
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                           "count": torch.cuda.device_count()}}))

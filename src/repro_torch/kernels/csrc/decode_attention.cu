@@ -30,7 +30,7 @@ template <int D>
 struct Tile {
   static constexpr int BK = D <= 64 ? 64 : 32;  // keys per tile
   static constexpr int KS = D + 1;              // padded K row: lanes hit distinct banks
-  static constexpr int DL = D / 32;             // output dims per lane
+  static constexpr int DL = (D + 31) / 32;      // output dims per lane (the last may be partial)
   static int smem_bytes(int g) {
     return static_cast<int>(sizeof(float)) * (BK * D + BK * KS + g * D + g * BK);
   }
@@ -127,7 +127,8 @@ __global__ void decode_attention_kernel(const T* __restrict__ q, const T* __rest
       const float p = ps[g * BK + j];
       const float* vr = vs + j * D + lane;
 #pragma unroll
-      for (int i = 0; i < DL; ++i) acc[i] += p * vr[32 * i];
+      for (int i = 0; i < DL; ++i)
+        if (D % 32 == 0 || lane + 32 * i < D) acc[i] += p * vr[32 * i];
     }
     m = mn;
   }
@@ -135,7 +136,8 @@ __global__ void decode_attention_kernel(const T* __restrict__ q, const T* __rest
   const float denom = fmaxf(l, 1e-30f);
   T* op = o + b * o_sb + (static_cast<long long>(kvh) * g_heads + g) * D + lane;
 #pragma unroll
-  for (int i = 0; i < DL; ++i) op[32 * i] = repro::from_f32<T>(acc[i] / denom);
+  for (int i = 0; i < DL; ++i)
+    if (D % 32 == 0 || lane + 32 * i < D) op[32 * i] = repro::from_f32<T>(acc[i] / denom);
 }
 
 template <typename T, int D>
@@ -167,6 +169,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   switch (d) {
     case 32: return launch_d<T, 32>(q, k, v, lengths, o, b, kv, g, t, st, scale, stream);
     case 64: return launch_d<T, 64>(q, k, v, lengths, o, b, kv, g, t, st, scale, stream);
+    case 80: return launch_d<T, 80>(q, k, v, lengths, o, b, kv, g, t, st, scale, stream);
     case 128: return launch_d<T, 128>(q, k, v, lengths, o, b, kv, g, t, st, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -20,11 +20,13 @@
 // and operations are close, 5.6 us to move q, k, v and out once against
 // 4.4 us for the 4*S*T*D/2 flops per head at the bf16 tensor-core rate; the
 // operations grow as S*T and take over for longer prompts. This first
-// version computes on the f32 CUDA cores: D/32 threads share a query row,
-// each keeping 32 dims of q and of the running acc in registers, and the K
-// and V tiles are staged in shared memory as f32 with a padded layout so the
-// threads of a row read distinct banks. It is therefore far from either
-// bound; mma/wgmma tiles are later work.
+// version computes on the f32 CUDA cores: TPR threads share a query row
+// (TPR the least power of two that leaves at most 40 dims a thread: 32 dims
+// each at D = 32, 64 and 128, 40 at D = 80), each keeping its dims of q and
+// of the running acc in registers, and the K and V tiles are staged in
+// shared memory as f32 with a padded layout so the threads of a row read
+// distinct banks. It is therefore far from either bound; mma/wgmma tiles are
+// later work.
 #include "common.cuh"
 
 namespace {
@@ -34,17 +36,29 @@ using repro::to_f32;
 
 constexpr int kBQ = 64;  // queries per CTA
 constexpr int kBK = 32;  // keys per KV tile
-constexpr int kDP = 32;  // head dims per thread
-constexpr int kPS = kDP + 4;  // padded floats per (key, thread-part) in smem
 
-// Stage rows t0..t0+kBK-1 of one KV head as f32 into dst[key][part][kPS];
+// How a query row's D dims are split over threads: TPR threads (a power of
+// two, so a row's threads sit in one warp) of DP dims each, the fewest
+// threads that leave at most 40 dims a thread; PS floats per (key, thread
+// part) in shared memory, padded so the parts of a row start in different
+// banks.
+template <int D>
+struct Split {
+  static constexpr int TPR = D <= 40 ? 1 : D <= 80 ? 2 : D <= 160 ? 4 : 8;
+  static constexpr int DP = D / TPR;
+  static constexpr int PS = DP + 4;
+  static_assert(D % TPR == 0 && DP % 8 == 0, "D must split into 16-byte vectors");
+};
+
+// Stage rows t0..t0+kBK-1 of one KV head as f32 into dst[key][part][PS];
 // rows at or past tk are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ base,
                                           long long stride_t, int t0, int tk) {
   constexpr int V = repro::kVec16<T>;
   constexpr int PER_ROW = D / V;
-  constexpr int RS = (D / kDP) * kPS;
+  constexpr int kDP = Split<D>::DP, kPS = Split<D>::PS;
+  constexpr int RS = Split<D>::TPR * kPS;
   for (int i = threadIdx.x; i < kBK * PER_ROW; i += blockDim.x) {
     const int j = i / PER_ROW;
     const int c = (i % PER_ROW) * V;
@@ -62,13 +76,14 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __re
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBQ * (D / kDP))
+__global__ void __launch_bounds__(kBQ * Split<D>::TPR)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int s_len, int t_len,
                        int n_heads, int n_kv, long long q_sb, long long q_ss, long long k_sb,
                        long long k_st, long long v_sb, long long v_st, long long o_sb,
                        long long o_ss, int causal, int window, float scale) {
-  constexpr int TPR = D / kDP;  // threads per query row
+  constexpr int TPR = Split<D>::TPR;  // threads per query row
+  constexpr int kDP = Split<D>::DP, kPS = Split<D>::PS;
   constexpr int RS = TPR * kPS;
   __shared__ __align__(16) float ks[kBK * RS];
   __shared__ __align__(16) float vs[kBK * RS];
@@ -180,7 +195,7 @@ template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int b, int s, int t, int h,
              int kv, const long long* st, int causal, int window, float scale,
              cudaStream_t stream) {
-  const dim3 grid((s + kBQ - 1) / kBQ, h, b), block(kBQ * (D / kDP));
+  const dim3 grid((s + kBQ - 1) / kBQ, h, b), block(kBQ * Split<D>::TPR);
   flash_attention_kernel<T, D><<<grid, block, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), s, t, h, kv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
@@ -199,6 +214,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int s, i
   switch (d) {
     case 32: return launch_d<T, 32>(q, k, v, o, b, s, t, h, kv, st, causal, window, scale, stream);
     case 64: return launch_d<T, 64>(q, k, v, o, b, s, t, h, kv, st, causal, window, scale, stream);
+    case 80: return launch_d<T, 80>(q, k, v, o, b, s, t, h, kv, st, causal, window, scale, stream);
     case 128: return launch_d<T, 128>(q, k, v, o, b, s, t, h, kv, st, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 BLOCK_K = 32  # keys per KV tile, as in the kernel
 NEG_INF = -1e30
 

@@ -8,7 +8,7 @@ version adds nothing to it.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -17,9 +17,10 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_rows_cuda, rmsnorm_rows_plain
+from repro_torch.kernels.ssd_scan import ssd_intra_chunk_cuda, ssd_intra_chunk_plain
 
 LAUNCHES: Dict[str, int] = {"fused_rmsnorm": 0, "flash_attention": 0,
-                            "flash_decode": 0}
+                            "flash_decode": 0, "ssd_chunk_dual": 0}
 
 
 def reset_launches() -> None:
@@ -63,4 +64,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         return decode_attention_plain(q, k_cache, v_cache, lengths)
     out = decode_attention_cuda(q, k_cache, v_cache, lengths)
     LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def ssd_chunk_dual(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,
+                   cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD intra-chunk step: xdt (B,NC,H,Q,P) f32, cum (B,NC,H,Q)
+    f32, B/C (B,NC,Q,N) -> (y (B,NC,H,Q,P) f32, states (B,NC,H,N,P) f32)."""
+    if not xdt.is_cuda:
+        return ssd_intra_chunk_plain(xdt, cum, bm, cm)
+    out = ssd_intra_chunk_cuda(xdt, cum, bm, cm)
+    LAUNCHES["ssd_chunk_dual"] += 1
     return out

@@ -37,6 +37,21 @@ def decode_attention_ref(q, k, v, lengths):
     return torch.einsum("bgt,btd->bgd", probs, v.float()).to(q.dtype)
 
 
+def ssd_intra_chunk_ref(xdt, cum, bm, cm):
+    """xdt (B,NC,H,Q,P), cum (B,NC,H,Q), bm/cm (B,NC,Q,N)."""
+    xdt, cum, bm, cm = xdt.float(), cum.float(), bm.float(), cm.float()
+    q = xdt.shape[3]
+    scores = torch.einsum("bcin,bcjn->bcij", cm, bm)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xdt.device))
+    diff = cum[..., :, None] - cum[..., None, :]  # (B,NC,H,Q,Q)
+    decay = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+    m = scores[:, :, None] * decay
+    y = torch.einsum("bchij,bchjp->bchip", m, xdt)
+    decay_to_end = torch.exp(cum[..., -1:] - cum)  # (B,NC,H,Q)
+    states = torch.einsum("bcjn,bchj,bchjp->bchnp", bm, decay_to_end, xdt)
+    return y, states
+
+
 def rmsnorm_ref(x, w, eps=1e-5):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)

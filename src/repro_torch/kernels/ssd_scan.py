@@ -1,0 +1,105 @@
+"""Mamba-2 SSD intra-chunk step: the CUDA kernel and its plain version.
+
+For each (batch, chunk, head), with Q positions in the chunk:
+
+    Y[i] = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) xdt_j
+    S    = sum_j B_j^T (exp(cum_last - cum_j) xdt_j)
+
+Both take the layouts of ``repro.kernels.ssd_scan.ssd_intra_chunk``: xdt
+(B,NC,H,Q,P) and cum (B,NC,H,Q) in f32, B/C (B,NC,Q,N) shared by the heads
+in f32 or bf16; they return y (B,NC,H,Q,P) and the chunk states (B,NC,H,N,P)
+in f32. The exponent is masked to j <= i before ``exp``, so the upper
+triangle cannot overflow into inf * 0. Any Q works: rows and keys past Q
+are masked, not padded. The kernel (``csrc/ssd_scan.cu``) replaces the TPU
+kernel ``repro/kernels/ssd_scan.py:ssd_intra_chunk``; the inter-chunk
+recurrence stays with the caller (``models/mamba2.py:ssd_chunked``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+B_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+HEAD_DIMS = (32, 64, 128)
+MAX_STATE = 256
+BLOCK = 64  # rows per output tile and keys per key tile, as in the kernel
+
+
+def ssd_intra_chunk_plain(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,
+                          cm: torch.Tensor):
+    """The kernel's algorithm in PyTorch: y accumulated over key tiles of
+    ``BLOCK`` positions, scores from B and C in f32, the decay masked before
+    its exponent."""
+    xdt, cum = xdt.float(), cum.float()
+    bm, cm = bm.float(), cm.float()
+    q = xdt.shape[3]
+    rows = torch.arange(q, device=xdt.device)
+    y = torch.zeros_like(xdt)
+    for j0 in range(0, q, BLOCK):
+        j1 = min(j0 + BLOCK, q)
+        valid = rows[None, j0:j1] <= rows[:, None]  # (Q, keys)
+        scores = torch.einsum("bcin,bcjn->bcij", cm, bm[:, :, j0:j1])
+        diff = cum[..., :, None] - cum[..., None, j0:j1]  # (B,NC,H,Q,keys)
+        decay = torch.exp(torch.where(valid, diff, 0.0))
+        m = torch.where(valid, scores[:, :, None] * decay, 0.0)
+        y += torch.einsum("bchij,bchjp->bchip", m, xdt[:, :, :, j0:j1])
+    weight = torch.exp(cum[..., -1:] - cum)  # (B,NC,H,Q)
+    states = torch.einsum("bcjn,bchjp->bchnp", bm, xdt * weight[..., None])
+    return y, states
+
+
+def _check(xdt, cum, bm, cm) -> None:
+    dev = xdt.device
+    if not (xdt.is_cuda and all(t.device == dev for t in (cum, bm, cm))):
+        raise ValueError(f"ssd kernel needs xdt, cum, B, C on one CUDA device, got "
+                         f"{xdt.device}, {cum.device}, {bm.device}, {cm.device}")
+    if xdt.dtype != torch.float32 or cum.dtype != torch.float32:
+        raise TypeError(f"ssd kernel takes f32 xdt and cum, got {xdt.dtype}, {cum.dtype}")
+    if bm.dtype not in B_DTYPES or cm.dtype != bm.dtype:
+        raise TypeError(f"ssd kernel takes B and C of one of f32/bf16, got "
+                        f"{bm.dtype}, {cm.dtype}")
+    if xdt.dim() != 5 or cum.dim() != 4 or bm.dim() != 4 or cm.shape != bm.shape:
+        raise ValueError(f"ssd kernel needs xdt (B,NC,H,Q,P), cum (B,NC,H,Q) and "
+                         f"B/C (B,NC,Q,N), got {tuple(xdt.shape)}, {tuple(cum.shape)}, "
+                         f"{tuple(bm.shape)}, {tuple(cm.shape)}")
+    b, nc, h, q, p = xdt.shape
+    if cum.shape != (b, nc, h, q) or bm.shape[:3] != (b, nc, q):
+        raise ValueError(f"ssd kernel: cum {tuple(cum.shape)} or B/C "
+                         f"{tuple(bm.shape)} do not match xdt {tuple(xdt.shape)}")
+    if p not in HEAD_DIMS or not 0 < bm.shape[3] <= MAX_STATE:
+        raise ValueError(f"ssd kernel takes P in {HEAD_DIMS} and N up to "
+                         f"{MAX_STATE}, got P={p}, N={bm.shape[3]}")
+    if b * nc > 65535 or h > 65535:
+        raise ValueError(f"ssd kernel takes B*NC and H up to 65535, got {b * nc}, {h}")
+    if xdt.stride(4) != 1 or bm.stride(3) != 1 or cm.stride(3) != 1:
+        raise ValueError(f"ssd kernel needs unit stride over P and N, got strides "
+                         f"{xdt.stride()}, {bm.stride()}, {cm.stride()}")
+
+
+def ssd_intra_chunk_cuda(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,
+                         cm: torch.Tensor):
+    """Launch the kernel on strided inputs (no copies).
+
+    y is returned as a (B,NC,H,Q,P) view of a (B,NC,Q,H,P) tensor, the
+    layout the model adds it to; the states are contiguous.
+    """
+    _check(xdt, cum, bm, cm)
+    b, nc, h, q, p = xdt.shape
+    n = bm.shape[3]
+    y = torch.empty((b, nc, q, h, p), dtype=torch.float32,
+                    device=xdt.device).permute(0, 1, 3, 2, 4)
+    states = torch.empty((b, nc, h, n, p), dtype=torch.float32, device=xdt.device)
+    if y.numel() == 0:
+        return y, states.zero_()
+    strides = (*xdt.stride()[:4], *cum.stride(), *bm.stride()[:3], *cm.stride()[:3],
+               *y.stride()[:4])
+    P, I = _build.P, _build.I
+    fn = _build.entry("ssd_scan", f"repro_ssd_intra_chunk_{B_DTYPES[bm.dtype]}",
+                      [P, P, P, P, P, P, I, I, I, I, I, I, P, P])
+    _build.check("ssd_scan", fn(
+        xdt.data_ptr(), cum.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+        y.data_ptr(), states.data_ptr(), b, nc, h, q, p, n,
+        (_build.L * len(strides))(*strides), _build.stream()))
+    return y, states

@@ -1,7 +1,8 @@
 """Reference weights into the port: ``repro.models.init_params`` output, as
-numpy arrays, becomes a :class:`~repro_torch.models.transformer.Transformer`.
+numpy arrays, becomes a :class:`~repro_torch.models.transformer.Transformer`
+of the dense, ssm or hybrid family.
 
-The reference stacks layers on a leading axis; here each layer is its own
+The reference stacks layers on leading axes; here each layer is its own
 submodule, so the stacked arrays are split. bf16 arrays (``ml_dtypes``) go
 through float32, which holds every bf16 value exactly. Only tests call this
 with JAX output; it imports no JAX.
@@ -9,7 +10,7 @@ with JAX output; it imports no JAX.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -24,29 +25,63 @@ def _tensor(a: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
                                                                   dtype=dtype)
 
 
+def _reference_state(np_tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The reference tree's leaves under the port's parameter names, the
+    stacked layer axes split into one entry per layer."""
+    state = {"embed": np_tree["embed"], "final_norm": np_tree["final_norm"]}
+    if not cfg.tie_embeddings:
+        state["lm_head"] = np_tree["lm_head"]
+    layers = np_tree["layers"]
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            for group in ("attn", "mlp"):
+                for name, stacked in layers[group].items():
+                    state[f"layers.{i}.{group}.{name}"] = np.asarray(stacked)[i]
+            for name in ("norm1", "norm2"):
+                state[f"layers.{i}.{name}"] = np.asarray(layers[name])[i]
+        return state
+    # ssm leaves are (L, ...), hybrid leaves (G, every, ...): flatten to L.
+    lead = 1 if cfg.family == "ssm" else 2
+
+    def per_layer(stacked):
+        a = np.asarray(stacked)
+        return a.reshape(-1, *a.shape[lead:])
+
+    for name, stacked in layers["mamba"].items():
+        for i, leaf in enumerate(per_layer(stacked)):
+            state[f"layers.{i}.mamba.{name}"] = leaf
+    for i, leaf in enumerate(per_layer(layers["norm1"])):
+        state[f"layers.{i}.norm1"] = leaf
+    if cfg.family == "hybrid":
+        for group in ("shared_attn", "shared_mlp"):
+            for name, leaf in np_tree[group].items():
+                state[f"{group}.{name}"] = leaf
+        for name in ("shared_norm1", "shared_norm2", "inv_proj"):
+            state[name] = np_tree[name]
+    return state
+
+
 def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig, *,
                     device: Device, dtype: Optional[torch.dtype] = None) -> Transformer:
     """Build a Transformer holding the reference tree's weights.
 
     ``np_tree`` has the reference's keys: embed, final_norm, lm_head (unless
-    tied) and layers/{attn/{wq,wk,wv,wo}, mlp/{wi,wo}, norm1, norm2}, each
-    layer leaf of shape (L, ...). ``dtype`` defaults to ``cfg.dtype``; wi
-    keeps the reference's [gate, up] column order.
+    tied) and
+      * dense: layers/{attn/{wq,wk,wv,wo}, mlp/{wi,wo}, norm1, norm2}, each
+        leaf (L, ...);
+      * ssm: layers/{mamba/{in_proj,conv_w,A_log,D,dt_bias,ssm_norm,out_proj},
+        norm1}, each leaf (L, ...);
+      * hybrid: layers/{mamba/*, norm1} with leaves (G, every, ...), plus
+        shared_attn/{wq,wk,wv,wo}, shared_mlp/{wi,wo}, shared_norm1/2 and
+        inv_proj (G, d, d).
+    ``dtype`` defaults to ``cfg.dtype``; wi keeps the reference's [gate, up]
+    column order. Raises if the tree's names or shapes differ from the
+    model's.
     """
     dev = resolve_device(device)
     model = Transformer(cfg, device="meta", dtype=dtype)
     dt = model.embed.dtype
-    state = {"embed": np_tree["embed"], "final_norm": np_tree["final_norm"]}
-    if not cfg.tie_embeddings:
-        state["lm_head"] = np_tree["lm_head"]
-    layers = np_tree["layers"]
-    for i in range(cfg.n_layers):
-        for group in ("attn", "mlp"):
-            for name, stacked in layers[group].items():
-                state[f"layers.{i}.{group}.{name}"] = np.asarray(stacked)[i]
-        for name in ("norm1", "norm2"):
-            state[f"layers.{i}.{name}"] = np.asarray(layers[name])[i]
-    tensors = {k: _tensor(v, dev, dt) for k, v in state.items()}
+    tensors = {k: _tensor(v, dev, dt) for k, v in _reference_state(np_tree, cfg).items()}
     expected = {k: tuple(p.shape) for k, p in model.named_parameters()}
     got = {k: tuple(t.shape) for k, t in tensors.items()}
     if expected != got:

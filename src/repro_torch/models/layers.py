@@ -12,14 +12,34 @@ reference's sharding constraints have no counterpart here.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.kernels import ops
 
 IMPLS = ("flash", "chunked", "naive")
+INIT_STD = 0.02
+
+
+class ParamGroup(nn.Module):
+    """A group of named weights: N(0, INIT_STD) from ``generator``, or ones
+    (names in ``ones``) or zeros (names in ``zeros``)."""
+
+    def __init__(self, shapes: Dict[str, Tuple[int, ...]], *, ones=(), zeros=(),
+                 generator: torch.Generator, device, dtype):
+        super().__init__()
+        for name, shape in shapes.items():
+            if name in ones:
+                w = torch.ones(shape, device=device, dtype=dtype)
+            elif name in zeros:
+                w = torch.zeros(shape, device=device, dtype=dtype)
+            else:
+                w = torch.randn(shape, generator=generator, device=device,
+                                dtype=dtype) * INIT_STD
+            setattr(self, name, nn.Parameter(w, requires_grad=False))
 
 
 def uses_kernels(run) -> bool:
@@ -186,6 +206,7 @@ def attention_block(
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_pos: Optional[int] = None,
     causal: bool = True,
+    cache_fill: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Returns (output, new_kv); ``params`` holds wq, wk, wv, wo (and
     q_norm, k_norm under ``cfg.qk_norm``).
@@ -193,7 +214,10 @@ def attention_block(
     * prefill: ``new_kv`` is this segment's rope'd (K, V).
     * decode (``kv_cache`` and ``cache_pos`` given): the new token's K/V is
       written into the cache at ``cache_pos`` in place (the reference returns
-      an updated copy) and ``new_kv`` is the cache.
+      an updated copy) and ``new_kv`` is the cache. The first
+      ``cache_fill`` slots are attended when it is given (a ring buffer, whose
+      live slots all lie in the window, so the window mask is off), else the
+      first ``cache_pos + S`` under ``cfg.window``.
     """
     b, s, _ = x.shape
     h, k_heads, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -212,12 +236,14 @@ def attention_block(
         k_cache, v_cache = kv_cache
         k_cache[:, cache_pos:cache_pos + s] = kk
         v_cache[:, cache_pos:cache_pos + s] = vv
-        lengths = torch.full((b,), cache_pos + s, dtype=torch.int32, device=x.device)
+        fill = cache_fill if cache_fill is not None else cache_pos + s
+        lengths = torch.full((b,), fill, dtype=torch.int32, device=x.device)
+        win = 0 if cache_fill is not None else cfg.window
         if kernel:
-            out = ops.flash_decode(q, k_cache, v_cache, lengths, window=cfg.window,
+            out = ops.flash_decode(q, k_cache, v_cache, lengths, window=win,
                                    softcap=cfg.attn_logit_softcap)
         else:
-            out = decode_attention(q, k_cache, v_cache, lengths, window=cfg.window,
+            out = decode_attention(q, k_cache, v_cache, lengths, window=win,
                                    softcap=cfg.attn_logit_softcap)
         new_kv = (k_cache, v_cache)
     else:

@@ -1,0 +1,192 @@
+"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060) block: the
+counterpart of ``repro.models.mamba2``.
+
+Prefill uses the chunked dual form: quadratic attention-like work inside
+chunks of Q positions plus a sequential recurrence over the chunks' states.
+With the kernel-backed run config (``attention_impl="flash"``) the
+intra-chunk part (each chunk's output and state) comes from
+``ops.ssd_chunk_dual``; the recurrence stays here. ``chunked`` and ``naive``
+keep the reference's plain form. Decode is the O(1)-state recurrence and
+runs no kernel. One device and no mesh, so the reference's ``chunk_shard``
+and sharding constraints have no counterpart.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import ParamGroup, rms_norm
+
+# Heads per step of the plain intra-chunk form, which bounds its (B,nc,Q,Q,h)
+# decay tensor, as the reference's ``head_block`` default.
+HEAD_BLOCK = 4
+
+
+class MambaBlock(ParamGroup):
+    """in_proj (d, 2*di + 2*N + H: z, x, B, C, dt), conv_w (K, di + 2*N),
+    A_log (H,) zeros, D (H,) ones, dt_bias (H,) zeros, ssm_norm (di,) ones and
+    out_proj (di, d), in the reference's layouts."""
+
+    def __init__(self, cfg, *, generator, device, dtype):
+        d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        super().__init__(
+            {"in_proj": (d, 2 * di + 2 * n + nh), "conv_w": (cfg.ssm_conv, di + 2 * n),
+             "A_log": (nh,), "D": (nh,), "dt_bias": (nh,), "ssm_norm": (di,),
+             "out_proj": (di, d)},
+            ones=("D", "ssm_norm"), zeros=("A_log", "dt_bias"),
+            generator=generator, device=device, dtype=dtype)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d via shifted adds. x: (B,S,C); w: (K,C).
+
+    ``state``: (B, K-1, C) trailing context from the previous segment.
+    Returns (silu(y), new_state)."""
+    k = w.shape[0]
+    b, s, c = x.shape
+    if state is None:
+        state = torch.zeros((b, k - 1, c), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)  # (B, S+K-1, C)
+    y = torch.zeros_like(x)
+    for i in range(k):
+        y = y + xp[:, i:i + s, :] * w[i]
+    new_state = xp[:, -(k - 1):, :].contiguous() if k > 1 else state
+    return F.silu(y), new_state
+
+
+def _split_proj(proj: torch.Tensor, cfg):
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    z = proj[..., :di]
+    xbc = proj[..., di:di + di + 2 * n]
+    dt = proj[..., -nh:]
+    return z, xbc, dt
+
+
+def _intra_chunk_plain(xdt, cum, bc, cc):
+    """The reference's intra-chunk form, heads in blocks of ``HEAD_BLOCK``.
+
+    xdt (B,nc,Q,H,P) f32, cum (B,nc,Q,H) f32, bc/cc (B,nc,Q,N). Returns
+    y_intra (B,nc,Q,H,P) and the chunk states (B,nc,H,N,P), f32."""
+    q, nh = xdt.shape[2], xdt.shape[3]
+    scores = torch.einsum("bcin,bcjn->bcij", cc.float(), bc.float())  # (B,nc,Q,Q)
+    valid = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xdt.device))
+    hb = next(c for c in range(min(HEAD_BLOCK, nh), 0, -1) if nh % c == 0)
+    ys, states = [], []
+    for h0 in range(0, nh, hb):
+        cum_h, xdt_h = cum[..., h0:h0 + hb], xdt[:, :, :, h0:h0 + hb]
+        # Mask the exponent before exp: the upper triangle has
+        # cum_i - cum_j > 0 growing with the chunk, so exp() overflows there.
+        diff = cum_h[:, :, :, None, :] - cum_h[:, :, None, :, :]  # (B,nc,Q,Q,hb)
+        mask = valid[None, None, :, :, None]
+        decay = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+        m = scores[..., None] * decay
+        ys.append(torch.einsum("bcijh,bcjhp->bcihp", m, xdt_h))
+        d2e = torch.exp(cum_h[:, :, -1:, :] - cum_h)  # (B,nc,Q,hb)
+        states.append(torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc.float(), d2e, xdt_h))
+    return torch.cat(ys, dim=3), torch.cat(states, dim=2)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None, *,
+                kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan.
+
+    x: (B,S,H,P)  dt: (B,S,H)  A: (H,)  Bm/Cm: (B,S,N)
+    h0: optional initial state (B,H,N,P).
+    Returns (y (B,S,H,P), final state (B,H,N,P)), both in x's dtype.
+    ``kernel`` takes the intra-chunk part from ``ops.ssd_chunk_dual``.
+    """
+    b, s, nh, p = x.shape
+    n = Bm.shape[-1]
+    q = min(chunk, s)
+    if s % q != 0:
+        # Right-pad to a chunk multiple: dt=0 there => decay 1, contribution
+        # 0, so the final state equals the state after the s real steps.
+        pad = q - s % q
+        y, h_last = ssd_chunked(
+            F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), A,
+            F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad)),
+            chunk, h0, kernel=kernel)
+        return y[:, :s], h_last
+    nc = s // q
+
+    xc = x.reshape(b, nc, q, nh, p)
+    dtc = dt.reshape(b, nc, q, nh).float()
+    bc = Bm.reshape(b, nc, q, n)
+    cc = Cm.reshape(b, nc, q, n)
+
+    dA = dtc * A.float()  # (B,nc,Q,H), negative
+    cum = torch.cumsum(dA, dim=2)  # inclusive cumulative log-decay
+    xdt = xc.float() * dtc[..., None]  # (B,nc,Q,H,P) f32
+
+    if kernel:
+        y_h, chunk_states = ops.ssd_chunk_dual(xdt.permute(0, 1, 3, 2, 4),
+                                               cum.permute(0, 1, 3, 2), bc, cc)
+        y_intra = y_h.permute(0, 1, 3, 2, 4)  # (B,nc,Q,H,P)
+    else:
+        y_intra, chunk_states = _intra_chunk_plain(xdt, cum, bc, cc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nc,H)
+
+    # Inter-chunk recurrence: h_prevs[c] is the state entering chunk c.
+    h = (torch.zeros((b, nh, n, p), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = chunk_decay[:, c, :, None, None] * h + chunk_states[:, c]
+    h_prev = torch.stack(h_prevs, dim=1)  # (B,nc,H,N,P)
+
+    # y_inter[i] = exp(cum_i) * C_i . h_prev, per head.
+    y_inter = torch.matmul(cc.float()[:, :, None], h_prev)  # (B,nc,H,Q,P)
+    y_inter = y_inter.permute(0, 1, 3, 2, 4) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(b, s, nh, p)
+    return y.to(x.dtype), h.to(x.dtype)
+
+
+def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = False,
+                ssm_state: Optional[torch.Tensor] = None,
+                conv_state: Optional[torch.Tensor] = None,
+                single_step: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mamba-2 block. x: (B,S,d) -> (y, ssm_state, conv_state).
+
+    ``single_step=True`` runs the O(1) decode recurrence (S must be 1).
+    ``kernel`` routes ``ssd_chunked`` and the gated norm through the
+    kernel-backed ops. The states are returned in x's dtype.
+    """
+    b, s, _ = x.shape
+    di, n, nh, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+
+    proj = x @ params.in_proj
+    z, xbc, dt_raw = _split_proj(proj, cfg)
+    xbc, conv_state = _causal_conv(xbc, params.conv_w, conv_state)
+    xs = xbc[..., :di].reshape(b, s, nh, p)
+    Bm = xbc[..., di:di + n]
+    Cm = xbc[..., di + n:]
+    dt = F.softplus(dt_raw.float() + params.dt_bias.float())
+    A = -torch.exp(params.A_log.float())
+
+    if single_step:
+        dA = torch.exp(dt[:, 0] * A)  # (B,H)
+        h_prev = (torch.zeros((b, nh, n, p), dtype=torch.float32, device=x.device)
+                  if ssm_state is None else ssm_state.float())
+        xdt = xs[:, 0].float() * dt[:, 0][..., None]  # (B,H,P)
+        h_new = dA[..., None, None] * h_prev + torch.einsum(
+            "bn,bhp->bhnp", Bm[:, 0].float(), xdt)
+        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h_new)
+        y = y[:, None].to(x.dtype)  # (B,1,H,P)
+        ssm_state = h_new.to(x.dtype)
+    else:
+        y, ssm_state = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, ssm_state,
+                                   kernel=kernel)
+
+    y = y + params.D.to(x.dtype)[None, None, :, None] * xs
+    y = y.reshape(b, s, di)
+    y = rms_norm(y * F.silu(z), params.ssm_norm, cfg.norm_eps, kernel=kernel)
+    return y @ params.out_proj, ssm_state, conv_state

@@ -1,11 +1,16 @@
-"""The dense decoder (pre-norm GQA transformer: yi, tinyllama, starcoder2,
-qwen3) as an ``nn.Module`` with one submodule per layer, and the functions
-that drive it: ``forward_hidden``, ``init_cache``, ``prefill`` and
-``decode_step``, with the signatures of ``repro.models.transformer``.
+"""The decoder families as ``nn.Module``s with one submodule per layer, and
+the functions that drive them: ``forward_hidden``, ``init_cache``,
+``prefill`` and ``decode_step``, with the signatures of
+``repro.models.transformer``. Families:
+
+  dense   pre-norm GQA transformer (yi, tinyllama, starcoder2, qwen3)
+  ssm     Mamba-2 SSD stack (mamba2-130m)
+  hybrid  Mamba-2 backbone + one shared attention block every k layers
+          (zamba2), on concat(x, embed0) as in Zamba
 
 Weights keep the reference's layouts ((d_in, d_out) matrices, used as
 ``x @ w``), so converted reference weights drop in unchanged. The other
-families (moe, ssm, hybrid, audio, vlm) are not ported yet.
+families (moe, audio, vlm) are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,10 +22,12 @@ from torch import nn
 
 from repro_torch import Device, resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.layers import attention_block, mlp_block, rms_norm, uses_kernels
+from repro_torch.models.layers import (INIT_STD, ParamGroup, attention_block, mlp_block,
+                                       rms_norm, uses_kernels)
+from repro_torch.models.mamba2 import MambaBlock, mamba_block
 
 Cache = Dict[str, Any]
-INIT_STD = 0.02
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _dtype(cfg: ModelConfig, dtype: Optional[torch.dtype] = None) -> torch.dtype:
@@ -28,25 +35,34 @@ def _dtype(cfg: ModelConfig, dtype: Optional[torch.dtype] = None) -> torch.dtype
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: only the "
-            f"dense family is (ROADMAP A8 ports the other families)")
+            f"{', '.join(FAMILIES)} families are (ROADMAP A8 ports the others)")
 
 
-class _Params(nn.Module):
-    """A group of named weights, each N(0, INIT_STD) or ones."""
+def _n_groups(cfg: ModelConfig) -> int:
+    """Shared-attention invocations of a hybrid stack."""
+    return cfg.n_layers // cfg.hybrid_attn_every
 
-    def __init__(self, shapes: Dict[str, Tuple[int, ...]], *, ones=(),
-                 generator: torch.Generator, device, dtype):
-        super().__init__()
-        for name, shape in shapes.items():
-            if name in ones:
-                w = torch.ones(shape, device=device, dtype=dtype)
-            else:
-                w = torch.randn(shape, generator=generator, device=device,
-                                dtype=dtype) * INIT_STD
-            setattr(self, name, nn.Parameter(w, requires_grad=False))
+
+def _attn_shapes(cfg: ModelConfig, d_in: int):
+    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    shapes = {"wq": (d_in, hq), "wk": (d_in, hkv), "wv": (d_in, hkv),
+              "wo": (hq, cfg.d_model)}
+    if cfg.qk_norm:
+        shapes.update(q_norm=(cfg.d_head,), k_norm=(cfg.d_head,))
+    return shapes
+
+
+def _mlp_shapes(cfg: ModelConfig, d_in: int):
+    width = 2 * cfg.d_ff if cfg.act == "swiglu" else cfg.d_ff
+    return {"wi": (d_in, width), "wo": (cfg.d_ff, cfg.d_model)}
+
+
+def _ones(n: int, kw) -> nn.Parameter:
+    return nn.Parameter(torch.ones(n, device=kw["device"], dtype=kw["dtype"]),
+                        requires_grad=False)
 
 
 class DenseBlock(nn.Module):
@@ -54,24 +70,33 @@ class DenseBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
         super().__init__()
-        d, hq, hkv = cfg.d_model, cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
-        attn = {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv), "wo": (hq, d)}
-        if cfg.qk_norm:
-            attn.update(q_norm=(cfg.d_head,), k_norm=(cfg.d_head,))
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.attn = _Params(attn, ones=("q_norm", "k_norm"), **kw)
-        width = 2 * cfg.d_ff if cfg.act == "swiglu" else cfg.d_ff
-        self.mlp = _Params({"wi": (d, width), "wo": (cfg.d_ff, d)}, **kw)
-        self.norm1 = nn.Parameter(torch.ones(d, device=device, dtype=dtype),
-                                  requires_grad=False)
-        self.norm2 = nn.Parameter(torch.ones(d, device=device, dtype=dtype),
-                                  requires_grad=False)
+        self.attn = ParamGroup(_attn_shapes(cfg, cfg.d_model),
+                               ones=("q_norm", "k_norm"), **kw)
+        self.mlp = ParamGroup(_mlp_shapes(cfg, cfg.d_model), **kw)
+        self.norm1 = _ones(cfg.d_model, kw)
+        self.norm2 = _ones(cfg.d_model, kw)
+
+
+class MambaLayer(nn.Module):
+    """One pre-norm Mamba-2 layer: mamba (``MambaBlock``) and norm1."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.mamba = MambaBlock(cfg, **kw)
+        self.norm1 = _ones(cfg.d_model, kw)
 
 
 class Transformer(nn.Module):
-    """Dense decoder weights: embed, layers, final_norm and lm_head (absent
-    when ``cfg.tie_embeddings``). Initialized N(0, 0.02) from ``generator``
-    (seed 0 on ``device`` when None), norms at one."""
+    """Decoder weights: embed, layers, final_norm and lm_head (absent when
+    ``cfg.tie_embeddings``); for the hybrid family also the shared block
+    (shared_attn and shared_mlp on 2*d_model inputs, shared_norm1/2) and
+    inv_proj (G, d, d), one per invocation. ``layers`` holds a
+    ``DenseBlock`` per layer (dense) or a ``MambaLayer`` per layer (ssm;
+    hybrid, group g's layer e at index g * every + e). Initialized N(0, 0.02)
+    from ``generator`` (seed 0 on ``device`` when None), norms and the SSM's
+    D at one, A_log and dt_bias at zero."""
 
     def __init__(self, cfg: ModelConfig, *, device: Device = None,
                  dtype: Optional[torch.dtype] = None,
@@ -87,13 +112,27 @@ class Transformer(nn.Module):
         d, v = cfg.d_model, cfg.padded_vocab
         self.embed = nn.Parameter(
             torch.randn((v, d), **kw) * INIT_STD, requires_grad=False)
-        self.final_norm = nn.Parameter(torch.ones(d, device=dev, dtype=dt),
-                                       requires_grad=False)
+        self.final_norm = _ones(d, kw)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 torch.randn((d, v), **kw) * INIT_STD, requires_grad=False)
-        self.layers = nn.ModuleList(DenseBlock(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "dense":
+            self.layers = nn.ModuleList(DenseBlock(cfg, **kw)
+                                        for _ in range(cfg.n_layers))
+        elif cfg.family == "ssm":
+            self.layers = nn.ModuleList(MambaLayer(cfg, **kw)
+                                        for _ in range(cfg.n_layers))
+        else:  # hybrid
+            groups = _n_groups(cfg)
+            self.layers = nn.ModuleList(MambaLayer(cfg, **kw) for _ in
+                                        range(groups * cfg.hybrid_attn_every))
+            self.shared_attn = ParamGroup(_attn_shapes(cfg, 2 * d),
+                                          ones=("q_norm", "k_norm"), **kw)
+            self.shared_mlp = ParamGroup(_mlp_shapes(cfg, 2 * d), **kw)
+            self.shared_norm1 = _ones(2 * d, kw)
+            self.shared_norm2 = _ones(2 * d, kw)
+            self.inv_proj = nn.Parameter(
+                torch.randn((groups, d, d), **kw) * INIT_STD, requires_grad=False)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
@@ -120,6 +159,30 @@ def dense_block(lp: DenseBlock, x, cfg, run, positions, kv_cache=None,
     return x + h, kv
 
 
+def mamba_layer(lp: MambaLayer, x, cfg, run, ssm_state=None, conv_state=None,
+                single_step: bool = False):
+    """One pre-norm Mamba-2 layer: (x + mamba(norm1(x)), ssm, conv)."""
+    kernel = uses_kernels(run)
+    y, ssm, conv = mamba_block(lp.mamba, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
+                               cfg, kernel=kernel, ssm_state=ssm_state,
+                               conv_state=conv_state, single_step=single_step)
+    return x + y, ssm, conv
+
+
+def hybrid_shared_block(params: Transformer, x, x0, inv_proj, cfg, run, positions,
+                        kv_cache=None, cache_pos=None, cache_fill=None):
+    """Zamba2 shared attention block on concat(x, embed0)."""
+    kernel = uses_kernels(run)
+    xin = torch.cat([x, x0], dim=-1)
+    h, kv = attention_block(params.shared_attn,
+                            rms_norm(xin, params.shared_norm1, cfg.norm_eps, kernel=kernel),
+                            cfg, run, positions, kv_cache=kv_cache,
+                            cache_pos=cache_pos, cache_fill=cache_fill)
+    m = mlp_block(params.shared_mlp,
+                  rms_norm(xin, params.shared_norm2, cfg.norm_eps, kernel=kernel), cfg.act)
+    return x + (h + m) @ inv_proj, kv
+
+
 def embed_tokens(params: Transformer, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return params.embed[tokens]
 
@@ -143,51 +206,103 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,
                    collect_kv: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Token embeddings through the stack.
 
-    Returns (hidden (B,S,d), extras); ``extras["kv"]`` lists each layer's
-    rope'd (K, V), (B,S,K,D) each, when ``collect_kv``.
+    Returns (hidden (B,S,d), extras). With ``collect_kv``, ``extras["kv"]``
+    lists the rope'd (K, V), (B,S,K,D) each, of every attention layer (dense)
+    or shared-block invocation (hybrid), and ``extras["ssm"]`` the
+    (ssm (B,H,N,P), conv (B,K-1,C)) states of every Mamba layer in order.
     """
     extras: Dict[str, Any] = {}
     x = embed_tokens(params, cfg, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    kvs = []
-    for lp in params.layers:
-        x, kv = dense_block(lp, x, cfg, run, positions)
-        if collect_kv:
+    kvs, states = [], []
+    if cfg.family == "dense":
+        for lp in params.layers:
+            x, kv = dense_block(lp, x, cfg, run, positions)
+            kvs.append(kv)
+    elif cfg.family == "ssm":
+        for lp in params.layers:
+            x, ssm, conv = mamba_layer(lp, x, cfg, run)
+            states.append((ssm, conv))
+    else:  # hybrid
+        x0 = x
+        every = cfg.hybrid_attn_every
+        for g in range(_n_groups(cfg)):
+            for lp in params.layers[g * every:(g + 1) * every]:
+                x, ssm, conv = mamba_layer(lp, x, cfg, run)
+                states.append((ssm, conv))
+            x, kv = hybrid_shared_block(params, x, x0, params.inv_proj[g], cfg, run,
+                                        positions)
             kvs.append(kv)
     if collect_kv:
-        extras["kv"] = kvs
+        if kvs:
+            extras["kv"] = kvs
+        if states:
+            extras["ssm"] = states
     x = rms_norm(x, params.final_norm, cfg.norm_eps, kernel=uses_kernels(run))
     return x, extras
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: Device = None, dtype: Optional[torch.dtype] = None) -> Cache:
-    """Zeroed KV cache: k/v (L, B, max_len, K, D) and ``pos`` (a Python int,
-    the number of positions filled; every row shares it)."""
+    """Zeroed cache and ``pos`` (a Python int, the number of positions
+    filled; every row shares it).
+
+    * dense: k/v (L, B, max_len, K, D).
+    * ssm: ssm (L, B, H, N, P) and conv (L, B, K-1, C), C = d_inner + 2N.
+    * hybrid: ssm (G, every, B, H, N, P), conv (G, every, B, K-1, C) and a
+      ring buffer k/v (G, B, min(window, max_len), K, D) per invocation.
+    """
     _check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, device=dev, dtype=_dtype(cfg, dtype)),
-            "v": torch.zeros(shape, device=dev, dtype=_dtype(cfg, dtype)),
-            "pos": 0}
+    kw = dict(device=dev, dtype=_dtype(cfg, dtype))
+    cache: Cache = {"pos": 0}
+    if cfg.family == "dense":
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+        cache["k"], cache["v"] = torch.zeros(shape, **kw), torch.zeros(shape, **kw)
+        return cache
+    lead = (cfg.n_layers,) if cfg.family == "ssm" else (_n_groups(cfg), cfg.hybrid_attn_every)
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    cache["ssm"] = torch.zeros((*lead, batch, cfg.ssm_heads, cfg.ssm_state,
+                                cfg.ssm_head_dim), **kw)
+    cache["conv"] = torch.zeros((*lead, batch, cfg.ssm_conv - 1, conv_ch), **kw)
+    if cfg.family == "hybrid":
+        wlen = min(cfg.window or max_len, max_len)
+        shape = (_n_groups(cfg), batch, wlen, cfg.n_kv_heads, cfg.d_head)
+        cache["k"], cache["v"] = torch.zeros(shape, **kw), torch.zeros(shape, **kw)
+    return cache
+
+
+def _layer_states(cache: Cache):
+    """Views of the ssm and conv caches with one leading axis over the Mamba
+    layers, in order (group g's layer e of a hybrid cache at g * every + e)."""
+    ssm, conv = cache["ssm"], cache["conv"]
+    return ssm.reshape(-1, *ssm.shape[-4:]), conv.reshape(-1, *conv.shape[-3:])
 
 
 def prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
             tokens: torch.Tensor, max_len: Optional[int] = None):
-    """Full-sequence forward that also returns the populated KV cache.
+    """Full-sequence forward that also returns the populated cache.
 
-    The cache holds ``max(max_len, S)`` positions, so decoding can follow
-    without growing it; the logits are those of the last position (B,1,V).
+    The cache is sized for ``max(max_len, S)`` positions, so decoding can
+    follow without growing it (a hybrid ring buffer holds the last
+    ``min(window, S)`` positions in its first slots); the logits are those of
+    the last position (B,1,V).
     """
     hidden, extras = forward_hidden(params, cfg, run, tokens, collect_kv=True)
     logits_last = lm_logits(params, cfg, hidden[:, -1:])
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device,
                        dtype=params.embed.dtype)
-    for i, (k, v) in enumerate(extras["kv"]):
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+    w = s if cfg.family == "dense" else min(cfg.window or s, s)
+    for i, (k, v) in enumerate(extras.get("kv", ())):
+        cache["k"][i, :, :w] = k[:, s - w:]
+        cache["v"][i, :, :w] = v[:, s - w:]
+    if "ssm" in extras:
+        ssm_l, conv_l = _layer_states(cache)
+        for i, (ssm, conv) in enumerate(extras["ssm"]):
+            ssm_l[i] = ssm
+            conv_l[i] = conv
     cache["pos"] = s
     return logits_last, cache
 
@@ -196,18 +311,44 @@ def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
                 cache: Cache, tokens: torch.Tensor):
     """One decode step: tokens (B,1) + cache -> (logits (B,1,V), new cache).
 
-    The new token's K/V is written into the cache tensors in place, so the
-    returned cache shares them with the one passed in; only ``pos`` differs.
+    The cache tensors are updated in place (the new token's K/V, the SSM and
+    conv states), so the returned cache shares them with the one passed in;
+    only ``pos`` differs. A hybrid writes position ``pos`` to ring slot
+    ``pos % wlen`` and attends the first ``min(pos + 1, wlen)`` slots.
     """
     pos = cache["pos"]
-    if pos >= cache["k"].shape[2]:
-        raise ValueError(f"KV cache of {cache['k'].shape[2]} positions is full")
     b = tokens.shape[0]
     x = embed_tokens(params, cfg, tokens)
     positions = torch.full((b, 1), pos, device=x.device)
-    for i, lp in enumerate(params.layers):
-        x, _ = dense_block(lp, x, cfg, run, positions,
-                           kv_cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+    if cfg.family == "dense":
+        if pos >= cache["k"].shape[2]:
+            raise ValueError(f"KV cache of {cache['k'].shape[2]} positions is full")
+        for i, lp in enumerate(params.layers):
+            x, _ = dense_block(lp, x, cfg, run, positions,
+                               kv_cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+    else:
+        ssm_l, conv_l = _layer_states(cache)
+
+        def mamba_step(i, x):
+            x, ssm, conv = mamba_layer(params.layers[i], x, cfg, run, ssm_state=ssm_l[i],
+                                       conv_state=conv_l[i], single_step=True)
+            ssm_l[i] = ssm
+            conv_l[i] = conv
+            return x
+
+        if cfg.family == "ssm":
+            for i in range(len(params.layers)):
+                x = mamba_step(i, x)
+        else:  # hybrid
+            x0 = x
+            every, wlen = cfg.hybrid_attn_every, cache["k"].shape[2]
+            for g in range(_n_groups(cfg)):
+                for i in range(g * every, (g + 1) * every):
+                    x = mamba_step(i, x)
+                x, _ = hybrid_shared_block(
+                    params, x, x0, params.inv_proj[g], cfg, run, positions,
+                    kv_cache=(cache["k"][g], cache["v"][g]), cache_pos=pos % wlen,
+                    cache_fill=min(pos + 1, wlen))
     x = rms_norm(x, params.final_norm, cfg.norm_eps, kernel=uses_kernels(run))
     logits = lm_logits(params, cfg, x)
     return logits, dict(cache, pos=pos + 1)

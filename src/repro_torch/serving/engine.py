@@ -4,8 +4,9 @@ Requests are left-padded (with token 0, which is attended, as in the
 reference) into waves of at most ``batch_size``; a wave runs prefill, then
 greedy decode steps until every request has its tokens or hit ``eos_id``,
 and the next wave takes the freed slots. The semantics are those of
-``repro.serving.engine.ServeEngine``; the default run config routes the model
-through the kernel-backed ops (``attention_impl="flash"``).
+``repro.serving.engine.ServeEngine``, for the dense, ssm and hybrid families;
+the default run config routes the model through the kernel-backed ops
+(``attention_impl="flash"``).
 """
 
 from __future__ import annotations
@@ -91,13 +92,30 @@ class ServeEngine:
                 for i, (rid, p) in enumerate(wave)]
 
     def _grow_cache(self, cache: Cache, new_len: int, batch: int) -> Cache:
-        """A cache of at least ``new_len`` positions holding ``cache``'s."""
+        """A cache for ``new_len`` positions holding ``cache``'s.
+
+        k/v grow to what ``init_cache`` gives for ``new_len`` (a hybrid ring
+        buffer to ``min(window, new_len)``), zeros after the old positions;
+        the ssm and conv states carry over unchanged. A cache with nothing to
+        grow (no k/v, or k/v long enough already) is returned as it is. On
+        ``_run_wave``'s path prefill has sized the cache already, so this
+        returns it unchanged; it is kept as the reference engine's
+        counterpart (``repro.serving.engine``).
+        """
+        if "k" not in cache:  # ssm: states of a fixed size
+            return cache
         old_len = cache["k"].shape[2]
-        if old_len >= new_len:
+        want = new_len
+        if self.cfg.family == "hybrid":  # a ring buffer of the window
+            want = min(self.cfg.window or new_len, new_len)
+        if old_len >= want:
             return cache
         grown = init_cache(self.cfg, batch, new_len, device=cache["k"].device,
                            dtype=cache["k"].dtype)
         for key in ("k", "v"):
             grown[key][:, :, :old_len] = cache[key]
+        for key in ("ssm", "conv"):
+            if key in cache:
+                grown[key] = cache[key]
         grown["pos"] = cache["pos"]
         return grown

@@ -29,7 +29,8 @@ def _needs_no_card():
 
 
 def test_module_list_covers_the_slice():
-    for name in ("repro_torch.kernels.ops", "repro_torch.models.transformer",
+    for name in ("repro_torch.kernels.ops", "repro_torch.kernels.ssd_scan",
+                 "repro_torch.models.transformer", "repro_torch.models.mamba2",
                  "repro_torch.serving.engine", "repro_torch.launch.serve"):
         assert name in MODULES
 

@@ -78,6 +78,8 @@ def test_flash_attention_non_causal_and_windowed(kwargs):
     (77, 77, 8, 2, 64, True, 0),     # S, T not multiples of any block
     (40, 130, 4, 1, 128, False, 0),  # S != T
     (100, 100, 4, 4, 64, True, 17),  # ragged sliding window
+    (77, 77, 4, 4, 80, True, 0),     # zamba2's head dim
+    (60, 60, 4, 4, 80, True, 16),    # zamba2's head dim, windowed
 ])
 def test_flash_attention_ragged_matches_ref(dtype, s, t, h, kh, d, causal, window):
     (jq, jk, jv), (tq, tk, tv) = _inputs(2, dtype, (2, s, h, d), (2, t, kh, d),
@@ -111,6 +113,7 @@ def test_flash_decode_matches_pallas(dtype, t, h, kh, d, bk):
     (576, 32, 4, 64, [513, 1, 65, 576]),  # the serve shape: T = plen + new tokens
     (100, 8, 2, 128, [1, 37, 99]),
     (70, 4, 4, 32, [70, 33]),
+    (90, 4, 4, 80, [1, 45, 90]),     # zamba2's head dim
 ])
 def test_flash_decode_ragged_matches_ref(dtype, t, h, kh, d, lengths):
     (jq, jk, jv, jl), tx = _decode_inputs(4, dtype, len(lengths), t, h, kh, d, lengths)
@@ -161,7 +164,10 @@ def test_cpu_tensors_never_count_launches():
     ops.flash_attention(tq, tk, tv)
     ops.flash_decode(tq[:, :1], tk, tv, torch.tensor([8], dtype=torch.int32))
     ops.fused_rmsnorm(tq, tq[0, 0, 0])
-    assert ops.LAUNCHES == {"fused_rmsnorm": 0, "flash_attention": 0, "flash_decode": 0}
+    ops.ssd_chunk_dual(tq[:, None].permute(0, 1, 3, 2, 4), tq[:, None, :, :, 0].mT,
+                       tq[:, None, :, 0], tq[:, None, :, 0])
+    assert ops.LAUNCHES == {"fused_rmsnorm": 0, "flash_attention": 0, "flash_decode": 0,
+                            "ssd_chunk_dual": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
