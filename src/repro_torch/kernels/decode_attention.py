@@ -2,58 +2,93 @@
 
 Both take the model's layouts, q (B,1,H,D) against a KV cache k/v (B,T,K,D)
 with ``lengths`` (B,) valid positions per row, and compute the G = H/K query
-heads of a group against their KV head in place. Both stop at ``lengths``
-(any T works) and give zeros where it is 0, as the TPU kernel does. The
-kernel (``csrc/decode_attention.cu``) replaces the TPU kernel
+heads of a group against their KV head in place. Row b attends to the keys
+``[max(0, len - window), len)`` (all of ``[0, len)`` when ``window`` is 0),
+with scores capped as ``softcap * tanh(s / softcap)`` where ``softcap > 0``,
+as ``repro.models.layers.decode_attention`` does; any T works, and a row of
+length 0 gives zeros, as the TPU kernel does.
+
+Both split the cache capacity T into :func:`num_splits` splits of
+``split_len`` keys (flash-decoding), compute an (m, l, acc) softmax state
+per split, and merge the states. The split count depends on T and the CTA
+count only, never on ``lengths``, which live on the device. The kernel
+(``csrc/decode_attention.cu``) replaces the TPU kernel
 ``repro/kernels/decode_attention.py:decode_attention_bkgd``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 NEG_INF = -1e30
+BLOCK_K = 64       # keys per tile; a split is a multiple of it
+HEAD_GROUP = 32    # query heads per CTA at most; larger groups take more CTAs
+SMS = 132          # streaming multiprocessors of an H100 SXM
+MIN_WAVES = 2      # CTAs of pass 1 aimed at, in multiples of SMS
 
 
-def block_k(d: int) -> int:
-    """Keys per KV tile, as in the kernel."""
-    return 64 if d <= 64 else 32
+def num_splits(t: int, ctas: int) -> Tuple[int, int]:
+    """(splits, split_len) for a cache of capacity ``t`` and ``ctas`` CTAs
+    per split (B * K * head groups): at least MIN_WAVES waves of CTAs on the
+    card, and splits of at least BLOCK_K keys, a multiple of it."""
+    most = max(1, -(-t // BLOCK_K))
+    want = -(-MIN_WAVES * SMS // max(ctas, 1))
+    n = max(1, min(most, want))
+    split_len = -(-(-(-t // n)) // BLOCK_K) * BLOCK_K
+    return max(1, -(-t // split_len)), split_len
+
+
+def head_groups(g: int) -> int:
+    return -(-g // HEAD_GROUP)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
-    """The kernel's algorithm in PyTorch: online softmax over KV tiles up to
-    the longest row, each row masked to its own length."""
+                           lengths: torch.Tensor, *, window: int = 0,
+                           softcap: float = 0.0,
+                           splits: Optional[int] = None) -> torch.Tensor:
+    """The kernel's algorithm in PyTorch: a softmax state (m, l, acc) in f32
+    per split of the keys, merged as the combine pass does. ``splits``
+    overrides the kernel's split count (1 gives one softmax over all keys)."""
     b, _, h, d = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     g = h // n_kv
+    if splits is None:
+        n, split_len = num_splits(t, b * n_kv * head_groups(g))
+    else:
+        n, split_len = splits, -(-t // splits)
     scale = 1.0 / math.sqrt(d)
     qg = q[:, 0].float().reshape(b, n_kv, g, d)
+    pad = n * split_len - t
+    kt = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad)).reshape(
+        b, n, split_len, n_kv, d)
+    vt = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad)).reshape(
+        b, n, split_len, n_kv, d)
     lens = lengths.to(device=q.device, dtype=torch.int64).clamp(0, t)
-    m = torch.full((b, n_kv, g), NEG_INF, device=q.device)
-    l = torch.zeros((b, n_kv, g), device=q.device)
-    acc = torch.zeros((b, n_kv, g, d), device=q.device)
-    bk = block_k(d)
-    for t0 in range(0, int(lens.max()) if b else 0, bk):
-        kt = k[:, t0:t0 + bk].float()
-        vt = v[:, t0:t0 + bk].float()
-        kpos = torch.arange(t0, t0 + kt.shape[1], device=q.device)
-        valid = (kpos[None, :] < lens[:, None])[:, None, None, :]  # (B,1,1,bk)
-        sc = torch.einsum("bkgd,btkd->bkgt", qg, kt) * scale
-        sc = sc.masked_fill(~valid, NEG_INF)
-        m_new = torch.maximum(m, sc.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(sc - m_new[..., None]).masked_fill(~valid, 0.0)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bkgt,btkd->bkgd", p, vt)
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    lo = (lens - window).clamp(min=0) if window > 0 else torch.zeros_like(lens)
+    kpos = torch.arange(n * split_len, device=q.device).reshape(n, split_len)
+    valid = (kpos >= lo[:, None, None]) & (kpos < lens[:, None, None])  # (B,n,sl)
+    valid = valid[:, None, None]  # (B,1,1,n,sl)
+    sc = torch.einsum("bkgd,bnskd->bkgns", qg, kt) * scale
+    if softcap > 0:
+        sc = softcap * torch.tanh(sc / softcap)
+    sc = sc.masked_fill(~valid, NEG_INF)
+    m = sc.amax(dim=-1)  # (B,K,G,n); NEG_INF for a split with no visible key
+    p = torch.exp(sc - m[..., None]).masked_fill(~valid, 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgns,bnskd->bkgnd", p, vt)
+    # Combine: weights e^(m_s - M) over the splits with l > 0.
+    live = l > 0
+    mx = torch.where(live, m, NEG_INF).amax(dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - mx), 0.0)
+    den = (w * l).sum(dim=-1)
+    out = (w[..., None] * acc).sum(dim=-2) / torch.clamp(den, min=1e-30)[..., None]
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
@@ -78,10 +113,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != d or h % n_kv or lengths.shape != (b,):
         raise ValueError(f"flash decode kernel: k/v {tuple(k.shape)} or lengths "
                          f"{tuple(lengths.shape)} do not match q {tuple(q.shape)}")
-    if d not in HEAD_DIMS or h // n_kv > 32:
-        raise ValueError(f"flash decode kernel takes D in {HEAD_DIMS} and at "
-                         f"most 32 query heads per KV head, got D={d}, "
-                         f"G={h // n_kv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash decode kernel takes D in {HEAD_DIMS}, got D={d}")
     if not (q.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("flash decode kernel needs contiguous q and lengths")
     vec = 16 // q.element_size()
@@ -93,20 +126,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          lengths: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel; the output is a new contiguous (B,1,H,D) tensor."""
+                          lengths: torch.Tensor, *, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """Launch both passes; the output is a new contiguous (B,1,H,D) tensor."""
     _check(q, k, v, lengths)
     b, _, h, d = q.shape
     t, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
     out = torch.empty_like(q)
     if out.numel() == 0 or t == 0:
         return out.zero_()
+    n, split_len = num_splits(t, b * n_kv * head_groups(g))
+    scratch = torch.empty((b, h, n, d + 2), dtype=torch.float32, device=q.device)
     P, I, L, F = _build.P, _build.I, _build.L, _build.F
     fn = _build.entry("decode_attention", f"repro_decode_attention_{DTYPES[q.dtype]}",
-                      [P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, F, P])
+                      [P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, L,
+                       I, F, F, P])
     _build.check("decode_attention", fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, n_kv, h // n_kv, t, d,
+        out.data_ptr(), scratch.data_ptr(), b, n_kv, g, t, d, n, split_len,
         q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        out.stride(0), 1.0 / math.sqrt(d), _build.stream()))
+        out.stride(0), int(window), 1.0 / math.sqrt(d), float(softcap),
+        _build.stream()))
     return out

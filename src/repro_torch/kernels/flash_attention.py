@@ -4,7 +4,11 @@ Both take the model's layouts, q (B,S,H,D) against k/v (B,T,K,D) with
 H a multiple of K, and read KV head ``h // (H/K)`` for query head h: no KV
 head is copied and nothing is transposed. Both mask the ragged edge, so any
 S and T work, skip KV tiles no query can see, and give 0 for a query that
-sees no key. The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
+sees no key. Query i sits at position ``i + q_offset``; ``softcap > 0``
+caps the scores as ``softcap * tanh(s / softcap)``, as
+``repro.models.layers.chunked_attention`` does. The kernel
+(``csrc/flash_attention.cu``: bf16 on the tensor cores, f32 on the CUDA
+cores) replaces the TPU kernel
 ``repro/kernels/flash_attention.py:flash_attention_bhsd``.
 """
 
@@ -17,8 +21,8 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (32, 64, 80, 128)
-BLOCK_K = 32  # keys per KV tile, as in the kernel
+HEAD_DIMS = (32, 64, 80, 96, 128)
+BLOCK_K = 64  # keys per KV tile, as in the bf16 kernel
 NEG_INF = -1e30
 
 
@@ -34,32 +38,47 @@ def _visible(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
     return mask
 
 
+def _as_terms(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """p as the kernel feeds it to the P.V product: for bf16, the sum of
+    two bf16 terms hi = bf16(p) and lo = bf16(p - hi) (exact in f32)."""
+    if dtype != torch.bfloat16:
+        return p
+    hi = p.to(dtype).float()
+    return hi + (p - hi).to(dtype).float()
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int = 0) -> torch.Tensor:
+                          *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
     """The kernel's algorithm in PyTorch: online softmax over KV tiles of
-    ``BLOCK_K`` keys with f32 running max, sum and accumulator."""
+    ``BLOCK_K`` keys with f32 running max, sum and accumulator. For bf16
+    inputs p enters the P.V product as two bf16 terms, hi + lo (as the bf16
+    kernel carries it), and the sum l is taken from the f32 p."""
     b, s, h, d = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     g = h // n_kv
     scale = 1.0 / math.sqrt(d)
     qg = q.float().reshape(b, s, n_kv, g, d)
-    qpos = torch.arange(s, device=q.device)
+    qpos = torch.arange(s, device=q.device) + q_offset
     m = torch.full((b, n_kv, g, s), NEG_INF, device=q.device)
     l = torch.zeros((b, n_kv, g, s), device=q.device)
     acc = torch.zeros((b, n_kv, g, s, d), device=q.device)
-    hi = min(t, s) if causal else t
+    hi = max(0, min(t, s + q_offset)) if causal else t
     for t0 in range(0, hi, BLOCK_K):
         kt = k[:, t0:t0 + BLOCK_K].float()
-        vt = v[:, t0:t0 + BLOCK_K].float()
+        vt = v[:, t0:t0 + BLOCK_K]
         kpos = torch.arange(t0, t0 + kt.shape[1], device=q.device)
         valid = _visible(qpos, kpos, causal, window)
         sc = torch.einsum("bskgd,btkd->bkgst", qg, kt) * scale
+        if softcap > 0:
+            sc = softcap * torch.tanh(sc / softcap)
         sc = sc.masked_fill(~valid, NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(sc - m_new[..., None]).masked_fill(~valid, 0.0)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, vt)
+        pv = torch.einsum("bkgst,btkd->bkgsd", _as_terms(p, v.dtype), vt.float())
+        acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
@@ -91,9 +110,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
     """Launch the kernel; the output is a new contiguous (B,S,H,D) tensor."""
     _check(q, k, v)
+    if q_offset < 0:
+        raise ValueError(f"flash attention kernel needs q_offset >= 0, got {q_offset}")
     b, s, h, d = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -102,11 +124,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     P, I, L, F = _build.P, _build.I, _build.L, _build.F
     fn = _build.entry("flash_attention", f"repro_flash_attention_{DTYPES[q.dtype]}",
                       [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L,
-                       I, I, F, P])
+                       I, I, I, F, F, P])
     _build.check("flash_attention", fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, t, h, n_kv, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        int(causal), int(window), 1.0 / math.sqrt(d), _build.stream()))
+        int(causal), int(window), int(q_offset), 1.0 / math.sqrt(d), float(softcap),
+        _build.stream()))
     return out

@@ -39,15 +39,13 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q (B,S,H,D); k/v (B,T,K,D) grouped-query -> (B,S,H,D)."""
-    if softcap > 0:
-        raise NotImplementedError(
-            "flash_attention has no logit softcap yet (ROADMAP C: K2 softcap)")
+    kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, **kw)
+    out = flash_attention_cuda(q, k, v, **kw)
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -55,14 +53,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  lengths: torch.Tensor, *, window: int = 0,
                  softcap: float = 0.0) -> torch.Tensor:
-    """q (B,1,H,D); k/v cache (B,T,K,D); lengths (B,) -> (B,1,H,D)."""
-    if window > 0 or softcap > 0:
-        raise NotImplementedError(
-            "flash_decode has no sliding window or logit softcap yet "
-            "(ROADMAP C: K3 window/softcap)")
+    """q (B,1,H,D); k/v cache (B,T,K,D); lengths (B,) -> (B,1,H,D). One
+    launch counts both passes (split and combine) of one call."""
     if not q.is_cuda:
-        return decode_attention_plain(q, k_cache, v_cache, lengths)
-    out = decode_attention_cuda(q, k_cache, v_cache, lengths)
+        return decode_attention_plain(q, k_cache, v_cache, lengths, window=window,
+                                      softcap=softcap)
+    out = decode_attention_cuda(q, k_cache, v_cache, lengths, window=window,
+                                softcap=softcap)
     LAUNCHES["flash_decode"] += 1
     return out
 

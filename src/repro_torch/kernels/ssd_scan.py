@@ -10,9 +10,12 @@ Both take the layouts of ``repro.kernels.ssd_scan.ssd_intra_chunk``: xdt
 in f32 or bf16; they return y (B,NC,H,Q,P) and the chunk states (B,NC,H,N,P)
 in f32. The exponent is masked to j <= i before ``exp``, so the upper
 triangle cannot overflow into inf * 0. Any Q works: rows and keys past Q
-are masked, not padded. The kernel (``csrc/ssd_scan.cu``) replaces the TPU
-kernel ``repro/kernels/ssd_scan.py:ssd_intra_chunk``; the inter-chunk
-recurrence stays with the caller (``models/mamba2.py:ssd_chunked``).
+are masked, not padded. The kernel takes P in ``HEAD_DIMS`` and N up to
+``MAX_STATE``; :func:`in_kernel_pieces` runs any other P and N through it
+in pieces (P zero-padded or cut in slices of 128, N cut in slices of 256).
+The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
+``repro/kernels/ssd_scan.py:ssd_intra_chunk``; the inter-chunk recurrence
+stays with the caller (``models/mamba2.py:ssd_chunked``).
 """
 
 from __future__ import annotations
@@ -50,6 +53,37 @@ def ssd_intra_chunk_plain(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor
     return y, states
 
 
+def in_kernel_pieces(run, xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,
+                     cm: torch.Tensor):
+    """``run`` (the kernel's launcher) on pieces whose P is in HEAD_DIMS and
+    whose N is at most MAX_STATE, joined into the result for the whole input.
+
+    The P columns of xdt are independent, so P is cut into slices of
+    ``max(HEAD_DIMS)`` and each slice zero-padded to the next width the kernel
+    takes; y and the states are cut back. y is linear in the score sum C.B^T
+    over N, so N is cut into slices of MAX_STATE: y is the sum of the
+    slices' y and the states are the slices' states side by side along N.
+    An input the kernel takes goes through in one piece, as it is."""
+    p, n = xdt.shape[-1], bm.shape[-1]
+    if (p in HEAD_DIMS and n <= MAX_STATE) or p == 0 or n == 0:
+        return run(xdt, cum, bm, cm)
+    ys, states = [], []
+    for p0 in range(0, p, max(HEAD_DIMS)):
+        part = xdt[..., p0:p0 + max(HEAD_DIMS)]
+        width = part.shape[-1]
+        padded = min(w for w in HEAD_DIMS if w >= width)
+        if padded != width:
+            part = torch.nn.functional.pad(part, (0, padded - width))
+        y_p, s_p = None, []
+        for n0 in range(0, n, MAX_STATE):
+            y_n, s_n = run(part, cum, bm[..., n0:n0 + MAX_STATE], cm[..., n0:n0 + MAX_STATE])
+            y_p = y_n if y_p is None else y_p + y_n
+            s_p.append(s_n)
+        ys.append(y_p[..., :width])
+        states.append(torch.cat(s_p, dim=-2)[..., :width])
+    return torch.cat(ys, dim=-1), torch.cat(states, dim=-1)
+
+
 def _check(xdt, cum, bm, cm) -> None:
     dev = xdt.device
     if not (xdt.is_cuda and all(t.device == dev for t in (cum, bm, cm))):
@@ -80,6 +114,12 @@ def _check(xdt, cum, bm, cm) -> None:
 
 def ssd_intra_chunk_cuda(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,
                          cm: torch.Tensor):
+    """Launch the kernel, in pieces where P or N is outside what it takes
+    (:func:`in_kernel_pieces`)."""
+    return in_kernel_pieces(_launch, xdt, cum, bm, cm)
+
+
+def _launch(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor):
     """Launch the kernel on strided inputs (no copies).
 
     y is returned as a (B,NC,H,Q,P) view of a (B,NC,Q,H,P) tensor, the

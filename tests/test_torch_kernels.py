@@ -181,15 +181,33 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         da.decode_attention_cuda(q[:, :1], q, q, torch.ones(1, dtype=torch.int32))
 
 
-def test_unsupported_options_raise():
-    q = torch.zeros(1, 4, 2, 32)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        ops.flash_attention(q, q, q, softcap=30.0)
-    lens = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="window"):
-        ops.flash_decode(q[:, :1], q, q, lens, window=16)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        ops.flash_decode(q[:, :1], q, q, lens, softcap=30.0)
+@pytest.mark.parametrize("call,kwargs", [
+    ("flash_attention", dict(softcap=30.0)),
+    ("flash_attention", dict(q_offset=24)),
+    ("flash_attention", dict(softcap=30.0, q_offset=24, window=16)),
+    ("flash_decode", dict(window=16)),
+    ("flash_decode", dict(softcap=30.0)),
+    ("flash_decode", dict(window=16, softcap=30.0)),
+])
+def test_former_gaps_match_reference(call, kwargs):
+    """The options the kernels once refused (softcap and q_offset for
+    flash_attention, window and softcap for flash_decode) give the reference
+    model's attention (repro.models.layers)."""
+    from repro.models import layers as jax_layers
+
+    (jq, jk, jv), (tq, tk, tv) = _inputs(11, "float32", (2, 40, 8, 64),
+                                         (2, 64, 2, 64), (2, 64, 2, 64))
+    if call == "flash_attention":
+        want = jax_layers.naive_attention(
+            jq, jk, jv, True, kwargs.get("window", 0), kwargs.get("q_offset", 0),
+            kwargs.get("softcap", 0.0))
+        got = ops.flash_attention(tq, tk, tv, causal=True, **kwargs)
+    else:
+        lens = np.asarray([5, 64], np.int32)
+        want = jax_layers.decode_attention(jq[:, :1], jk, jv, jnp.asarray(lens),
+                                           kwargs.get("window", 0), kwargs.get("softcap", 0.0))
+        got = ops.flash_decode(tq[:, :1], tk, tv, torch.from_numpy(lens), **kwargs)
+    _close(got, want, 2e-5)
 
 
 def test_build_names_libraries_by_source_and_headers(tmp_path, monkeypatch):
