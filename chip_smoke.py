@@ -9,9 +9,11 @@ the repository is not beside it). It
 3. holds each kernel against its plain PyTorch version on the card, in f32
    and bf16, at the serve paths' shapes (RMSNorm at every width the paths
    norm, attention at head dims 64 and 80 with softcap, query offset,
-   window and D 32, 96 and 128 beside them, the SSD step at the zamba2-2.7b
-   and mamba2-130m shapes and its wrapper at P and N the kernel cuts into
-   pieces) and at ragged shapes, and times the kernel, the
+   window and D 32, 96 and 128 beside them, the SSD step on both of its
+   paths, bf16 B/C on the tensor cores and f32 B/C on the CUDA cores, at the
+   zamba2-2.7b and mamba2-130m shapes, the bf16 path also against the exact
+   f32 form, and its wrapper at P and N the kernel cuts into pieces) and at
+   ragged shapes, and times the kernel, the
    plain version and the one PyTorch library call that computes the same
    function, where there is one (timed only; the port never calls it),
    against the least time the card could take (``bound_ms``), with the
@@ -241,11 +243,14 @@ def check_kernels(port):
     # K1: rows = B*S at prefill, B at decode, at every width the serve paths
     # norm: tinyllama 2048; zamba2 2560 (norm1, final_norm) and 5120
     # (ssm_norm, the shared block's norms); mamba2-130m 768 and 1536.
-    # d = 2050 takes the scalar path.
+    # d = 2050 is not in 16-byte vectors and takes the one-element loop;
+    # d = 8200 is wider than the register kernel holds (8192) and takes the
+    # loop that reads the row twice.
     widths = (2048, 2560, 5120, 768, 1536)
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
-        for rows, d in [(r, d) for d in widths for r in (BATCH * PROMPT_LEN, BATCH)] + [(7, 2050)]:
+        for rows, d in [(r, d) for d in widths for r in (BATCH * PROMPT_LEN, BATCH)] + \
+                [(7, 2050), (3, 8200)]:
             x, w = rnd(rows, d, dtype=dtype), rnd(d, dtype=dtype)
             checks.append(compare("fused_rmsnorm", [rows, d], ops.fused_rmsnorm(x, w),
                                   rms.rmsnorm_rows_plain(x, w)))
@@ -342,10 +347,13 @@ def check_kernels(port):
     # K4: the prefill shapes of zamba2-2.7b (H 80, N 64) and mamba2-130m
     # (H 24, N 128), one wave of B 4 x 512 tokens in 2 chunks of 256, with
     # xdt and cum as the model's (B,NC,Q,H,.) views and B/C slices of one
-    # projection; ragged chunks (Q 77, Q 5); and cum falling by up to 40 a
-    # step, so that exp of the unmasked upper triangle would be inf.
-    def ssd_inputs(b, nc, h, q, p, n, dtype, span=1.0):
-        xdt = rnd(b, nc, q, h, p, dtype=torch.float32) * 0.1
+    # projection; ragged chunks (Q 77 at N 64 and 128, Q 5); and cum falling
+    # by up to 40 a step, so that exp of the unmasked upper triangle would be
+    # inf. Every case runs both paths (the dtype of B/C picks one); the bf16
+    # path, whose plain version mirrors its hi + lo terms, is also held to
+    # the exact f32 form (the plain version on the same B/C upcast).
+    def ssd_inputs(b, nc, h, q, p, n, dtype, span=1.0, x_offset=0):
+        xdt = (rnd(b, nc, q, h, p + x_offset, dtype=torch.float32) * 0.1)[..., x_offset:]
         cum = -torch.cumsum(torch.rand(b, nc, q, h, generator=gen, device="cuda") * span, dim=2)
         proj = rnd(b, nc, q, 2 * n + 8, dtype=torch.float32) * 0.3
         return (xdt.permute(0, 1, 3, 2, 4), cum.permute(0, 1, 3, 2),
@@ -353,41 +361,55 @@ def check_kernels(port):
 
     checks = []
     zamba, mamba = (BATCH, 2, 80, 256, 64, 64), (BATCH, 2, 24, 256, 64, 128)
-    cases = [(zamba, torch.float32, 1.0), (zamba, torch.bfloat16, 1.0),
-             (mamba, torch.float32, 1.0), (mamba, torch.bfloat16, 1.0),
-             ((2, 3, 8, 77, 64, 64), torch.float32, 1.0), ((2, 1, 8, 5, 64, 64), torch.float32, 1.0),
-             ((1, 1, 8, 256, 64, 64), torch.float32, 40.0)]
-    for shape, dtype, span in cases:
-        args = ssd_inputs(*shape, dtype, span)
+
+    def check_ssd(shape, dtype, span=1.0, x_offset=0):
+        args = ssd_inputs(*shape, dtype, span, x_offset)
         if span > 1:
             c = args[1][0, 0, 0]
             require(bool(torch.isinf(torch.exp(c[:, None] - c[None, :])).any()),
                     "the overflow case overflows without the mask")
-        got, want = ops.ssd_chunk_dual(*args), ssd.ssd_intra_chunk_plain(*args)
-        for part, g, w in zip(("y", "states"), got, want):
-            checks.append(compare("ssd_chunk_dual", [*shape, str(dtype), span, part], g, w,
-                                  tol=SSD_TOL))
+        got = ops.ssd_chunk_dual(*args)
+        wants = [("", ssd.ssd_intra_chunk_plain(*args))]
+        if dtype == torch.bfloat16:
+            wants.append((" vs exact f32", ssd.ssd_intra_chunk_plain(
+                args[0], args[1], args[2].float(), args[3].float())))
+        for label, want in wants:
+            for part, g, w in zip(("y", "states"), got, want):
+                require(g.shape == w.shape, f"ssd_chunk_dual {shape} {part} shape {tuple(g.shape)}")
+                checks.append(compare("ssd_chunk_dual", [*shape, str(dtype), span, part + label],
+                                      g, w, tol=SSD_TOL))
+
+    for shape, span in ((zamba, 1.0), (mamba, 1.0), ((2, 3, 8, 77, 64, 64), 1.0),
+                        ((2, 3, 8, 77, 64, 128), 1.0), ((2, 1, 8, 5, 64, 64), 1.0),
+                        ((1, 1, 8, 256, 64, 64), 40.0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_ssd(shape, dtype, span)
     # The wrapper at P and N the kernel does not take itself (it pads P to
     # the next width, cuts P in slices of 128 and N in slices of 256): the
     # smallest such input, xdt (1, 1, 1, 8, 16), then P 96 and 160, N 320.
     for shape in ((1, 1, 1, 8, 16, 64), (2, 1, 4, 77, 96, 64), (1, 2, 2, 64, 160, 64),
                   (1, 1, 2, 64, 64, 320)):
-        args = ssd_inputs(*shape, torch.float32)
-        got, want = ops.ssd_chunk_dual(*args), ssd.ssd_intra_chunk_plain(*args)
-        for part, g, w in zip(("y", "states"), got, want):
-            require(g.shape == w.shape, f"ssd_chunk_dual {shape} {part} shape {tuple(g.shape)}")
-            checks.append(compare("ssd_chunk_dual", [*shape, "float32", 1.0, part], g, w,
-                                  tol=SSD_TOL))
+        for dtype in (torch.float32, torch.bfloat16):
+            check_ssd(shape, dtype)
+    # Rows the tensor-core path cannot copy in 16-byte pieces: B/C of N 44
+    # and xdt one float off alignment (a view of a 65-wide buffer).
+    for dtype in (torch.float32, torch.bfloat16):
+        check_ssd((2, 1, 4, 77, 64, 44), dtype, x_offset=1)
+    # Both paths at both serve shapes, bf16 (the served one) first. The
+    # operations are counted once, the scores once per chunk (the kernel
+    # does more: split terms, scores per head), at the peak of each path's
+    # units.
     timings = []
-    for b, nc, h, q, p, n in (zamba, mamba):
-        args = ssd_inputs(b, nc, h, q, p, n, torch.bfloat16)
-        y, states = ssd.ssd_intra_chunk_plain(*args)
-        pairs = q * (q + 1) // 2  # (i, j) pairs with j <= i per chunk
-        timings.append(timing(
-            [b, nc, h, q, p, n], lambda: ops.ssd_chunk_dual(*args),
-            lambda: ssd.ssd_intra_chunk_plain(*args), None,
-            flops=b * nc * (h * (2 * pairs * p + 2 * q * n * p) + 2 * pairs * n),
-            nbytes=nbytes(*args, y, states), peak=PEAK_F32_FLOPS))
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_F32_FLOPS)):
+        for b, nc, h, q, p, n in (zamba, mamba):
+            args = ssd_inputs(b, nc, h, q, p, n, dtype)
+            y, states = ssd.ssd_intra_chunk_plain(*args)
+            pairs = q * (q + 1) // 2  # (i, j) pairs with j <= i per chunk
+            timings.append(timing(
+                [b, nc, h, q, p, n, str(dtype).removeprefix("torch.")],
+                lambda: ops.ssd_chunk_dual(*args), lambda: ssd.ssd_intra_chunk_plain(*args), None,
+                flops=b * nc * (h * (2 * pairs * p + 2 * q * n * p) + 2 * pairs * n),
+                nbytes=nbytes(*args, y, states), peak=peak))
     results["ssd_chunk_dual"] = dict(checks=checks, timings=timings)
 
     for name, r in results.items():

@@ -1,5 +1,5 @@
 // Asynchronous copies and warp-level tensor-core tiles (sm_80 and later,
-// built here for sm_90a): cp.async of 16 bytes with zero fill, ldmatrix of
+// built here for sm_90a): cp.async of 16 or 4 bytes with zero fill, ldmatrix of
 // four 8x8 b16 tiles (plain and transposed) and mma.sync m16n8k16 on bf16
 // with f32 accumulation.
 //
@@ -32,6 +32,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Copy 4 bytes (any 4-byte aligned address); zero-fills dst when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

@@ -1,8 +1,11 @@
 """Fused RMSNorm with a learned scale: the CUDA kernel and its plain version.
 
 The kernel (``csrc/rmsnorm.cu``) replaces the TPU kernel
-``repro/kernels/rmsnorm.py:rmsnorm_rows``: one warp per row, 16-byte vector
-loads and a warp-shuffle reduction in f32, for any row count.
+``repro/kernels/rmsnorm.py:rmsnorm_rows``, for any row count: a row spread
+over 1, 2 or 4 warps and held in registers as 16-byte vectors (read from
+device memory once, every load issued before the f32 reduction), up to
+d = 8192; wider rows, and rows not in 16-byte vectors, take a loop that
+reads the row twice.
 """
 
 from __future__ import annotations

@@ -10,8 +10,11 @@ Both take the layouts of ``repro.kernels.ssd_scan.ssd_intra_chunk``: xdt
 in f32 or bf16; they return y (B,NC,H,Q,P) and the chunk states (B,NC,H,N,P)
 in f32. The exponent is masked to j <= i before ``exp``, so the upper
 triangle cannot overflow into inf * 0. Any Q works: rows and keys past Q
-are masked, not padded. The kernel takes P in ``HEAD_DIMS`` and N up to
-``MAX_STATE``; :func:`in_kernel_pieces` runs any other P and N through it
+are masked, not padded. The dtype of B and C picks the kernel's path: bf16
+runs the products on the tensor cores, with the masked scores M, xdt and
+the state's weighted xdt each entering as two bf16 terms hi + lo; f32 runs
+them on the CUDA cores in f32. The kernel takes P in ``HEAD_DIMS`` and N up
+to ``MAX_STATE``; :func:`in_kernel_pieces` runs any other P and N through it
 in pieces (P zero-padded or cut in slices of 128, N cut in slices of 256).
 The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
 ``repro/kernels/ssd_scan.py:ssd_intra_chunk``; the inter-chunk recurrence
@@ -27,18 +30,43 @@ from repro_torch.kernels import _build
 B_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (32, 64, 128)
 MAX_STATE = 256
-BLOCK = 64  # rows per output tile and keys per key tile, as in the kernel
+BLOCK = 64  # keys per key tile, as in the kernel
+
+
+def _terms(t: torch.Tensor, split: bool):
+    """t as the kernel feeds it to a product: on the bf16 path two bf16 terms,
+    hi = bf16(t) and lo = bf16(t - hi), held in f32 (about 16 bits of t);
+    else t itself."""
+    if not split:
+        return (t,)
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _products(eq: str, a, b) -> torch.Tensor:
+    """The einsum of two operands given as terms, summed over every pair of
+    terms but lo.lo, as the kernel sums its products (Mh.Xh + Ml.Xh + Mh.Xl
+    for y, B^T.Wh + B^T.Wl for the state)."""
+    out = torch.einsum(eq, a[0], b[0])
+    for i, j in ((1, 0), (0, 1)):
+        if i < len(a) and j < len(b):
+            out = out + torch.einsum(eq, a[i], b[j])
+    return out
 
 
 def ssd_intra_chunk_plain(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,
                           cm: torch.Tensor):
     """The kernel's algorithm in PyTorch: y accumulated over key tiles of
     ``BLOCK`` positions, scores from B and C in f32, the decay masked before
-    its exponent."""
+    its exponent. For bf16 B and C the f32 operands of the products enter as
+    two bf16 terms (:func:`_terms`), as the kernel's tensor-core path feeds
+    them; with f32 B and C the products are exact f32."""
+    split = bm.dtype == torch.bfloat16
     xdt, cum = xdt.float(), cum.float()
     bm, cm = bm.float(), cm.float()
     q = xdt.shape[3]
     rows = torch.arange(q, device=xdt.device)
+    xs = _terms(xdt, split)
     y = torch.zeros_like(xdt)
     for j0 in range(0, q, BLOCK):
         j1 = min(j0 + BLOCK, q)
@@ -47,9 +75,10 @@ def ssd_intra_chunk_plain(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor
         diff = cum[..., :, None] - cum[..., None, j0:j1]  # (B,NC,H,Q,keys)
         decay = torch.exp(torch.where(valid, diff, 0.0))
         m = torch.where(valid, scores[:, :, None] * decay, 0.0)
-        y += torch.einsum("bchij,bchjp->bchip", m, xdt[:, :, :, j0:j1])
+        y += _products("bchij,bchjp->bchip", _terms(m, split),
+                       [t[:, :, :, j0:j1] for t in xs])
     weight = torch.exp(cum[..., -1:] - cum)  # (B,NC,H,Q)
-    states = torch.einsum("bcjn,bchjp->bchnp", bm, xdt * weight[..., None])
+    states = _products("bcjn,bchjp->bchnp", (bm,), _terms(xdt * weight[..., None], split))
     return y, states
 
 

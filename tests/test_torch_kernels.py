@@ -136,7 +136,9 @@ def test_flash_decode_zero_length_gives_zeros_like_pallas():
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", [(8, 128), (4, 32, 256), (3, 5, 64), (7, 2048)])
+@pytest.mark.parametrize("shape", [(8, 128), (4, 32, 256), (3, 5, 64), (7, 2048),
+                                   (3, 8200),   # wider than the kernel holds in registers
+                                   (7, 2050)])  # not in 16-byte vectors
 def test_rmsnorm_matches_pallas(dtype, shape):
     (jx,), (tx,) = _inputs(6, dtype, shape)
     rng = np.random.default_rng(7)

@@ -74,6 +74,52 @@ def test_plain_takes_bf16_b_and_c():
     _close(st, want_st)
 
 
+def _bf16_chunk(seed, n, span):
+    """The serve shape of one chunk (Q 256, P 64) with bf16 B and C, as numpy
+    (B and C holding bf16 values) for both packages, and as torch tensors."""
+    xdt, cum, bm, cm = _chunk_inputs(seed, 1, 1, 2, 256, 64, n, span=span)
+    tb, tc = (torch.from_numpy(a).to(torch.bfloat16) for a in (bm, cm))
+    jax_args = (jnp.asarray(xdt), jnp.asarray(cum),
+                jnp.asarray(tb.float().numpy(), jnp.bfloat16),
+                jnp.asarray(tc.float().numpy(), jnp.bfloat16))
+    return jax_args, (torch.from_numpy(xdt), torch.from_numpy(cum), tb, tc)
+
+
+@pytest.mark.parametrize("span", [1.0, 40.0])
+@pytest.mark.parametrize("n", [64, 128])
+def test_bf16_split_terms_match_pallas(n, span):
+    """With bf16 B and C the kernel feeds the masked scores M, xdt and the
+    state's weighted xdt to the tensor cores as two bf16 terms each (hi +
+    lo, dropping lo.lo); the plain version mirrors that split, and holds the
+    Pallas kernel's f32 result at the serve shape within 1e-4."""
+    jax_args, args = _bf16_chunk(13, n, span)
+    want_y, want_st = jax_ssd_chunk_dual(*jax_args, interpret=True)
+    y, st = ss.ssd_intra_chunk_plain(*args)
+    _close(y, want_y)
+    _close(st, want_st)
+    exact_y, _ = ss.ssd_intra_chunk_plain(args[0], args[1], args[2].float(), args[3].float())
+    assert 0 < float((y - exact_y).abs().max()) < TOL / 2  # the split is used, and cheap
+
+
+@pytest.mark.parametrize("span", [1.0, 40.0])
+@pytest.mark.parametrize("n", [64, 128])
+def test_bf16_scores_rounded_once_break_the_tolerance(n, span):
+    """M rounded once to bf16 (xdt exact), the arithmetic the split replaces,
+    misses the Pallas kernel by more than 1e-4 at the same shape."""
+    jax_args, (xdt, cum, bm, cm) = _bf16_chunk(13, n, span)
+    want_y, _ = jax_ssd_chunk_dual(*jax_args, interpret=True)
+    q = xdt.shape[3]
+    rows = torch.arange(q)
+    valid = rows[None, :] <= rows[:, None]
+    scores = torch.einsum("bcin,bcjn->bcij", cm.float(), bm.float())
+    diff = cum[..., :, None] - cum[..., None, :]
+    m = torch.where(valid, scores[:, :, None] * torch.exp(torch.where(valid, diff, 0.0)), 0.0)
+    y_once = torch.einsum("bchij,bchjp->bchip", m.to(torch.bfloat16).float(), xdt)
+    want = torch.from_numpy(np.array(want_y, np.float32))
+    excess = (y_once - want).abs() - (TOL + TOL * want.abs())
+    assert float(excess.max()) > 0
+
+
 def test_masked_exponent_does_not_overflow():
     """cum falls by up to 40 a step: exp of the unmasked upper triangle is inf
     in f32, and inf * 0 would be NaN."""
