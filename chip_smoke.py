@@ -25,7 +25,18 @@ the repository is not beside it). It
    the exact kernel launches of that run, that a decode step's logits match
    prefill's on the same prefix, and (tinyllama, zamba2) that the kernel
    path matches the plain path in f32 and bf16;
-5. prints a JSON line of per-kernel numbers and, last, the JSON result line.
+5. runs the analyzer (``repro_torch.api.analyze``) on the card and on the
+   host over the Gauss-Seidel kernel of each of the five machine models x
+   unroll {1, 2, 4} x predictors {all, tp+cp+lcd, tp} x diagnose, eight
+   randomized kernels per machine and a 512-instruction kernel per ISA: the
+   two reports must be equal, the card's run must run its LCD sweeps and
+   water-filling passes on the card, with CUDA kernels in its trace, and
+   the Gauss-Seidel kernels at unroll 4 must meet
+   the paper's Table I and the simulator's pins; it prints the wall times
+   of the Gauss-Seidel kernels at unroll 4 and of the 512-instruction
+   kernels on both sides, with the card's launches per analysis. The
+   analyzer launches none of the four kernels of phase 3;
+6. prints a JSON line of per-kernel numbers and, last, the JSON result line.
 
 Any failed check raises, so the script exits non-zero before the last line.
 """
@@ -35,8 +46,11 @@ from __future__ import annotations
 import copy
 import importlib
 import json
+import math
 import os
+import random
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -577,6 +591,207 @@ def serve(port, device_name, phase):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the analyzer (asm -> report) on the card and on the host
+# ---------------------------------------------------------------------------
+
+ANALYZER_ARCHS = ("tx2", "csx", "zen", "zen2", "n1")
+ANALYZER_PREDICTORS = (None, ("tp", "cp", "lcd"), ("tp",))
+# Pins of the Gauss-Seidel kernels at unroll 4 in cy/it, copied from the
+# paper's Table I (src/repro/core/validation/gauss_seidel.py: TP, LCD, CP;
+# TP is read rounded to two places, the others to a relative 1e-6, as
+# tests/test_table1.py reads them) and from the simulator's pins
+# (tests/test_sim.py: to 1e-9).
+TABLE1_PINS = {"tx2": (2.46, 18.00, 25.00), "csx": (2.19, 14.00, 18.00),
+               "zen": (2.00, 11.50, 15.00)}
+SIM_PINS = {"tx2": 18.00, "csx": 14.00, "zen": 11.50, "zen2": 10.50, "n1": 7.50}
+# tests/test_sim.py::_random_kernel's instruction mix and per-arch seeds.
+RANDOM_OPS = {
+    "aarch64": ["fadd d{a}, d{b}, d{c}", "fmul d{a}, d{b}, d{c}",
+                "fdiv d{a}, d{b}, d{c}", "add x{a}, x{b}, 8",
+                "ldr d{a}, [x{b}, 8]", "str d{a}, [x{b}], 8",
+                "cmp x{a}, x{b}"],
+    "x86": ["vaddsd %xmm{a}, %xmm{b}, %xmm{c}",
+            "vmulsd %xmm{a}, %xmm{b}, %xmm{c}",
+            "movsd 8(%rax,%rbx,8), %xmm{a}",
+            "movsd %xmm{a}, 8(%rax,%rbx,8)",
+            "addq $8, %rax", "cmpq %rbx, %rax"],
+}
+RANDOM_ARCH_SEED = {"tx2": 100, "n1": 200, "csx": 300, "zen": 400, "zen2": 500}
+SYNTHETIC_N = 512  # benchmarks/run.py::analyzer_scaling's largest kernel
+ANALYZER_REPS = 5
+
+
+def marked(lines):
+    return "# OSACA-BEGIN\n" + "\n".join(lines) + "\n# OSACA-END"
+
+
+def random_kernel_text(isa, seed, arch):
+    """tests/test_sim.py::_random_kernel's text for one (arch, seed)."""
+    rng = random.Random(seed * 31 + RANDOM_ARCH_SEED[arch])
+    ops = RANDOM_OPS[isa]
+    return marked([rng.choice(ops).format(a=rng.randint(0, 7), b=rng.randint(0, 7),
+                                          c=rng.randint(0, 7))
+                   for _ in range(rng.randint(1, 14))])
+
+
+def synthetic_text(isa, n):
+    """benchmarks/run.py's mixed FP / load / store / pointer-bump kernels
+    (``_synthetic_kernel`` for AArch64, ``_synthetic_kernel_x86``)."""
+    lines, regs = [], 8
+    for i in range(n):
+        if isa == "aarch64":
+            if i % 7 == 3:
+                lines.append(f"ldr d{i % regs}, [x1, {8 * (i % 16)}]")
+            elif i % 11 == 5:
+                lines.append(f"str d{(i + 1) % regs}, [x2], 8")
+            elif i % 5 == 2:
+                lines.append(f"add x{3 + i % 4}, x{3 + i % 4}, 8")
+            else:
+                lines.append(f"fadd d{i % regs}, d{(i + 1) % regs}, d{(i + 2) % regs}")
+        elif i % 7 == 3:
+            lines.append(f"movsd {8 * (i % 16)}(%rsi,%rbx,8), %xmm{i % regs}")
+        elif i % 11 == 5:
+            lines.append(f"movsd %xmm{(i + 1) % regs}, {8 * (i % 16)}(%rax)")
+        elif i % 5 == 2:
+            lines.append("addq $8, %rdx")
+        else:
+            lines.append(f"vaddsd %xmm{i % regs}, %xmm{(i + 1) % regs}, "
+                         f"%xmm{(i + 2) % regs}")
+    return marked(lines)
+
+
+def analyzer_cases(registry):
+    """The Gauss-Seidel kernel of each arch x unroll x predictors x
+    diagnose, eight randomized kernels per arch, and one 512-instruction
+    kernel per ISA. ``timed`` marks the cases whose times are reported."""
+    cases = []
+    for arch in ANALYZER_ARCHS:
+        for unroll in (1, 2, 4):
+            for predictors in ANALYZER_PREDICTORS:
+                for diagnose in (False, True):
+                    cases.append(dict(
+                        arch=arch, name="gauss-seidel", text=registry.get_arch(arch).sample_asm,
+                        unroll=unroll, predictors=predictors, diagnose=diagnose,
+                        pinned=unroll == 4 and predictors is None,
+                        timed=unroll == 4 and predictors is None and not diagnose))
+    for arch in ANALYZER_ARCHS:
+        isa = registry.get_arch(arch).isa
+        for seed in range(8):
+            cases.append(dict(arch=arch, name=f"rand-{seed}",
+                              text=random_kernel_text(isa, seed, arch), unroll=1,
+                              predictors=None, diagnose=False, pinned=False, timed=False))
+    for arch, isa, name in (("tx2", "aarch64", f"synthetic-{SYNTHETIC_N}"),
+                            ("csx", "x86", f"synthetic-x86-{SYNTHETIC_N}")):
+        cases.append(dict(arch=arch, name=name, text=synthetic_text(isa, SYNTHETIC_N),
+                          unroll=1, predictors=None, diagnose=False, pinned=False,
+                          timed=True))
+    return cases
+
+
+def analyzer(port):
+    """Phase 5: every case of :func:`analyzer_cases` through
+    ``repro_torch.api.analyze`` on the card and on the host, each from a
+    cleared cache. The two reports must be equal. The LCD sweep is the pass
+    that runs on the device: the card's run must run as many sweeps as the
+    host's, every one with its distance matrix on the card, and its
+    torch.profiler trace must hold CUDA kernels wherever a sweep ran. Every
+    Gauss-Seidel case that asks for LCD runs one. The other stages run on the
+    host on either side, so a case without a sweep (predictors ``tp``, or a
+    kernel with no loop-carried candidate, such as a lone ``fdiv``) does no
+    work on the card; such cases are counted as ``host_only``. The
+    Gauss-Seidel kernels at unroll 4 must meet their pins. Prints one
+    ``{"analyzer": [...]}`` line with the timed cases' wall times (median of
+    ANALYZER_REPS, cache cleared) on both sides and the card's device
+    activity per analysis."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    api, sweep = port["api"], port["sweep"]
+    clear = port["analysis"].clear_analysis_cache
+    normalize = port["analysis"].normalize_predictors
+
+    def run(case, device):
+        clear()
+        opts = api.AnalyzeOptions(unroll=case["unroll"], predictors=case["predictors"],
+                                  diagnose=case["diagnose"])
+        t0 = time.perf_counter()
+        report = api.analyze(case["text"], arch=case["arch"], name=case["name"],
+                             options=opts, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return report, (time.perf_counter() - t0) * 1e3
+
+    def label(case):
+        return (f"{case['arch']} {case['name']} unroll {case['unroll']} "
+                f"predictors {case['predictors']} diagnose {case['diagnose']}")
+
+    def traced(case):
+        """The card's run under torch.profiler: its report, its device
+        events, the kernels among them and the sweeps it ran, by device
+        type. A run that swept on the card but whose trace shows no kernel
+        is traced again, up to three times."""
+        for _ in range(3):
+            sweep.reset_sweeps()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                report, _ = run(case, "cuda")
+            sweeps = dict(sweep.SWEEPS)
+            events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+            if kernels or not sweeps["cuda"]:
+                return report, events, kernels, sweeps
+        raise AssertionError(f"analyzer {label(case)}: swept on the card, "
+                             "but no CUDA kernel in three traces")
+
+    t_phase = time.perf_counter()
+    cases = analyzer_cases(port["registry"])
+    run(cases[0], "cuda")  # first use: CUDA context and lazy module loads
+    rows, with_kernels, host_only, host_only_events = [], 0, 0, 0
+    for case in cases:
+        gpu, events, kernels, on_card = traced(case)
+        sweep.reset_sweeps()
+        cpu, _ = run(case, "cpu")
+        on_host = dict(sweep.SWEEPS)
+        require(gpu.to_dict() == cpu.to_dict(),
+                f"analyzer {label(case)}: the cuda report differs from the cpu report")
+        require(on_card["cpu"] == 0 and on_card["cuda"] == on_host["cpu"],
+                f"analyzer {label(case)}: sweeps {on_card} on the card, {on_host} on the host")
+        if on_card["cuda"]:
+            with_kernels += 1
+        else:
+            host_only += 1
+            host_only_events += len(events)
+        if case["name"] == "gauss-seidel" and "lcd" in normalize(case["predictors"]):
+            require(on_card["cuda"] == 1, f"analyzer {label(case)}: LCD sweep on the card")
+        if case["pinned"]:
+            arch = case["arch"]
+            if arch in TABLE1_PINS:
+                tp, lcd, cp = TABLE1_PINS[arch]
+                require(round(gpu.tp_per_it, 2) == tp
+                        and math.isclose(gpu.lcd_per_it, lcd, rel_tol=1e-6)
+                        and math.isclose(gpu.cp_per_it, cp, rel_tol=1e-6),
+                        f"analyzer {arch}: Table I TP/LCD/CP {gpu.tp_per_it}/"
+                        f"{gpu.lcd_per_it}/{gpu.cp_per_it}, pinned {tp}/{lcd}/{cp}")
+            require(abs(gpu.sim_per_it - SIM_PINS[arch]) <= 1e-9,
+                    f"analyzer {arch}: sim {gpu.sim_per_it} cy/it, pinned {SIM_PINS[arch]}")
+        if case["timed"]:
+            gpu_ms = statistics.median(run(case, "cuda")[1] for _ in range(ANALYZER_REPS))
+            cpu_ms = statistics.median(run(case, "cpu")[1] for _ in range(ANALYZER_REPS))
+            device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+            rows.append({"arch": case["arch"], "kernel": case["name"],
+                         "instructions": len(gpu.rows), "unroll": case["unroll"],
+                         "cuda_ms": gpu_ms, "cpu_ms": cpu_ms,
+                         "kernel_launches": len(kernels),
+                         "copies": len(events) - len(kernels),
+                         "device_ms": device_ms, "device_busy_share": device_ms / gpu_ms})
+    log(json.dumps({"analyzer": rows}))
+    log(json.dumps({"analyzer_checks": {"cases": len(cases), "equal": len(cases),
+                                        "with_kernels": with_kernels,
+                                        "host_only": host_only,
+                                        "host_only_device_events": host_only_events,
+                                        "seconds": time.perf_counter() - t_phase}}))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -594,6 +809,10 @@ def main() -> int:
         "configs": importlib.import_module("repro_torch.configs"),
         "models": importlib.import_module("repro_torch.models"),
         "serving": importlib.import_module("repro_torch.serving"),
+        "api": importlib.import_module("repro_torch.api"),
+        "analysis": importlib.import_module("repro_torch.core.analysis"),
+        "sweep": importlib.import_module("repro_torch.core.analysis.sweep"),
+        "registry": importlib.import_module("repro_torch.core.registry"),
     }
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -620,6 +839,7 @@ def main() -> int:
         _, run_launches = serve(port, name, phase)
         for k, v in run_launches.items():
             launches[k] = launches.get(k, 0) + v
+    analyzer(port)
 
     sources = {
         "fused_rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),

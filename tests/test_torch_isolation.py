@@ -31,7 +31,19 @@ def _needs_no_card():
 def test_module_list_covers_the_slice():
     for name in ("repro_torch.kernels.ops", "repro_torch.kernels.ssd_scan",
                  "repro_torch.models.transformer", "repro_torch.models.mamba2",
-                 "repro_torch.serving.engine", "repro_torch.launch.serve"):
+                 "repro_torch.serving.engine", "repro_torch.launch.serve",
+                 "repro_torch.api", "repro_torch.core.registry",
+                 "repro_torch.core.isa.parser_x86", "repro_torch.core.isa.parser_aarch64",
+                 "repro_torch.core.machine.model", "repro_torch.core.machine.tx2",
+                 "repro_torch.core.validation.gauss_seidel",
+                 "repro_torch.core.calibration.corpus",
+                 "repro_torch.core.analysis.sweep", "repro_torch.core.analysis.dag",
+                 "repro_torch.core.analysis.scheduler", "repro_torch.core.analysis.lcd",
+                 "repro_torch.core.analysis.critical_path",
+                 "repro_torch.core.analysis.throughput",
+                 "repro_torch.core.analysis.diagnostics",
+                 "repro_torch.core.analysis.report", "repro_torch.core.analysis.render",
+                 "repro_torch.core.analysis.analyze", "repro_torch.core.sim.engine"):
         assert name in MODULES
 
 
@@ -65,6 +77,57 @@ def test_entry_points_raise_without_a_card():
             "print('RAISED')\n")
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RAISED" in proc.stdout
+
+
+def test_analyze_raises_without_a_card():
+    # Every exported analyzer function that takes ``device`` runs on the
+    # card unless told otherwise: called without one, each raises.
+    _needs_no_card()
+    code = ("import inspect\n"
+            "import repro_torch.api as api\n"
+            "import repro_torch.core.analysis as analysis\n"
+            "import repro_torch.core.analysis.sweep as sweep\n"
+            "import repro_torch.core.sim as sim\n"
+            "from repro_torch.core.analysis.dag import build_dag\n"
+            "from repro_torch.core.registry import get_arch\n"
+            "spec = get_arch('tx2')\n"
+            "model, kernel = spec.model_factory(), spec.parser(spec.sample_asm)\n"
+            "dag = build_dag(kernel, model, copies=2, dual_writeback=True)\n"
+            "ptr, idx = dag.pred_csr()\n"
+            "calls = {\n"
+            "    'analyze': lambda: api.analyze(spec.sample_asm, arch='tx2'),\n"
+            "    'analyze_raw': lambda: api.analyze_raw(spec.sample_asm, arch='tx2'),\n"
+            "    'analyze_kernel': lambda: analysis.analyze_kernel(kernel, model),\n"
+            "    'analyze_kernel_bracket': lambda: analysis.analyze_kernel_bracket(kernel, model),\n"
+            "    'analyze_kernel_rung': lambda: analysis.analyze_kernel_rung(\n"
+            "        kernel, model, rung='tp_only'),\n"
+            "    'analyze_kernel_ladder': lambda: analysis.analyze_kernel_ladder(kernel, model),\n"
+            "    'analyze_kernels': lambda: analysis.analyze_kernels([kernel], model),\n"
+            "    'lcd_from_dag': lambda: analysis.lcd_from_dag(dag, len(kernel)),\n"
+            "    'loop_carried_dependencies': lambda: analysis.loop_carried_dependencies(\n"
+            "        kernel, model),\n"
+            "    'batched_longest_paths': lambda: sweep.batched_longest_paths(\n"
+            "        ptr, idx, dag.latency_vector(), [[0]]),\n"
+            "}\n"
+            "exported = {n for mod in (api, analysis, sim, sweep)\n"
+            "            for n in getattr(mod, '__all__', dir(mod))\n"
+            "            if callable(getattr(mod, n, None)) and not n.startswith('_')\n"
+            "            and not inspect.isclass(getattr(mod, n))\n"
+            "            and getattr(mod, n).__module__.startswith('repro_torch.')\n"
+            "            and 'device' in inspect.signature(getattr(mod, n)).parameters}\n"
+            "assert exported == set(calls), sorted(exported ^ set(calls))\n"
+            "for name, fn in calls.items():\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as exc:\n"
+            "        assert 'no CUDA device' in str(exc), (name, exc)\n"
+            "    else:\n"
+            "        raise SystemExit(f'{name} ran on the CPU without being asked')\n"
+            "print(api.analyze(spec.sample_asm, arch='tx2', device='cpu').tp_per_it)\n"
+            "print('RAISED')\n")
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
     assert "RAISED" in proc.stdout
 
 
