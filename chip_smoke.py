@@ -25,18 +25,40 @@ the repository is not beside it). It
    the exact kernel launches of that run, that a decode step's logits match
    prefill's on the same prefix, and (tinyllama, zamba2) that the kernel
    path matches the plain path in f32 and bf16;
-5. runs the analyzer (``repro_torch.api.analyze``) on the card and on the
-   host over the Gauss-Seidel kernel of each of the five machine models x
-   unroll {1, 2, 4} x predictors {all, tp+cp+lcd, tp} x diagnose, eight
-   randomized kernels per machine and a 512-instruction kernel per ISA: the
-   two reports must be equal, the card's run must run its LCD sweeps and
-   water-filling passes on the card, with CUDA kernels in its trace, and
-   the Gauss-Seidel kernels at unroll 4 must meet
-   the paper's Table I and the simulator's pins; it prints the wall times
-   of the Gauss-Seidel kernels at unroll 4 and of the 512-instruction
-   kernels on both sides, with the card's launches per analysis. The
-   analyzer launches none of the four kernels of phase 3;
-6. prints a JSON line of per-kernel numbers and, last, the JSON result line.
+5. runs the analyzer (``repro_torch.api.analyze``, each call a wave of one)
+   on the card and on the host over the Gauss-Seidel kernel of each of the
+   five machine models x unroll {1, 2, 4} x predictors {all, tp+cp+lcd, tp}
+   x diagnose, eight randomized kernels per machine and a 512-instruction
+   kernel per ISA: the two reports must be equal, the card's run must run
+   every CP and LCD pass of the wave engine on the card, with CUDA kernels
+   in its trace (the water-filling and the simulator run on the host on
+   either side), and the Gauss-Seidel kernels at unroll 4 must meet the
+   paper's Table I and the simulator's pins; it prints the wall times of
+   the Gauss-Seidel kernels at unroll 4 and of the 512-instruction kernels
+   on both sides, with the card's launches, copies and device ms per
+   analysis. The analyzer launches none of the four kernels of phase 3;
+6. runs waves through ``analyze_kernels(use_cache=False)`` on the card and
+   on the host, and the per-kernel loop on the host: W8, W64 and W256
+   (benchmarks/run.py's ``batched_analysis`` waves on tx2), R256 on each
+   machine (256 randomized kernels), L64 on tx2 and csx (64 kernels of
+   449..512 instructions, which the 32 MiB budget splits into chunks) and a
+   ragged wave (1 beside 512 instructions). The three must be equal slot
+   for slot, and every pass of the card's wave must run on the card; it
+   prints per wave the kernels, distinct kernels, chunks, CP and LCD
+   levels, launches, copies, device ms and the wall ms on both sides;
+7. serves requests through ``AnalysisService`` on the card and on the host:
+   benchmarks/run.py's ``analysis_service`` trace (256 requests over four
+   kernels, batches of 16), 256 distinct randomized kernels over tx2, csx
+   and zen in batches of 64, and a seeded chaos trace (virtual clock, fault
+   rate 0.05, queue depth 8) whose envelopes, counters and cache stats must
+   be equal; last, one real-clock request whose deadline the worker thread
+   trips on a 512-instruction kernel must come back degraded or timed out,
+   and once its worker has been joined a fresh request on the card must
+   equal the host's;
+8. calibrates tx2, csx and zen on the card and on the host: the results
+   must be equal field for field;
+9. prints each phase's seconds, a JSON line of per-kernel numbers and,
+   last, the JSON result line.
 
 Any failed check raises, so the script exits non-zero before the last line.
 """
@@ -44,6 +66,7 @@ Any failed check raises, so the script exits non-zero before the last line.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import importlib
 import json
 import math
@@ -53,6 +76,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -688,25 +712,64 @@ def analyzer_cases(registry):
     return cases
 
 
+def passes(port):
+    """The tensor passes run since the last reset, by counter and device
+    type: the wave engine's CP and LCD chunk passes and the per-kernel
+    engine's LCD sweeps."""
+    return {"waves": dict(port["batch"].WAVE_PASSES), "sweeps": dict(port["sweep"].SWEEPS)}
+
+
+def reset_passes(port):
+    port["batch"].reset_wave_passes()
+    port["sweep"].reset_sweeps()
+
+
+def on_card_as_on_host(on_card, on_host):
+    """Every pass of the card's run ran on the card, as many as the host's
+    run ran on the host."""
+    return all(on_card[c]["cpu"] == 0 and on_card[c]["cuda"] == on_host[c]["cpu"]
+               and on_host[c]["cuda"] == 0 for c in on_card)
+
+
+def traced(port, fn, what):
+    """``fn()`` on the card under torch.profiler: its result, its device
+    events, the kernels among them and the passes it ran. A run that ran a
+    pass on the card but whose trace shows no kernel is traced again, up to
+    three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        reset_passes(port)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        ran = passes(port)
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+        if kernels or not (ran["waves"]["cuda"] or ran["sweeps"]["cuda"]):
+            return out, events, kernels, ran
+    raise AssertionError(f"{what}: ran passes on the card, but no CUDA kernel in three traces")
+
+
 def analyzer(port):
     """Phase 5: every case of :func:`analyzer_cases` through
     ``repro_torch.api.analyze`` on the card and on the host, each from a
-    cleared cache. The two reports must be equal. The LCD sweep is the pass
-    that runs on the device: the card's run must run as many sweeps as the
-    host's, every one with its distance matrix on the card, and its
-    torch.profiler trace must hold CUDA kernels wherever a sweep ran. Every
-    Gauss-Seidel case that asks for LCD runs one. The other stages run on the
-    host on either side, so a case without a sweep (predictors ``tp``, or a
-    kernel with no loop-carried candidate, such as a lone ``fdiv``) does no
-    work on the card; such cases are counted as ``host_only``. The
+    cleared cache; each call is a wave of one (``analyze_kernels`` sends its
+    misses to ``analyze_wave``). The two reports must be equal. The wave's
+    CP and LCD passes are what runs on the device: the card's run must run
+    as many as the host's, every one with its tensors on the card, and its
+    torch.profiler trace must hold CUDA kernels wherever a pass ran (the
+    per-kernel engine's LCD sweeps, counted apart, run only for the
+    reference's fallback cases). Every Gauss-Seidel case runs one CP pass if
+    it asks for CP and one LCD pass if it asks for LCD. The other stages run
+    on the host on either side, so a case without a pass (predictors ``tp``)
+    does no work on the card; such cases are counted as ``host_only``. The
     Gauss-Seidel kernels at unroll 4 must meet their pins. Prints one
     ``{"analyzer": [...]}`` line with the timed cases' wall times (median of
     ANALYZER_REPS, cache cleared) on both sides and the card's device
     activity per analysis."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    api, sweep = port["api"], port["sweep"]
+    api = port["api"]
     clear = port["analysis"].clear_analysis_cache
     normalize = port["analysis"].normalize_predictors
 
@@ -725,43 +788,30 @@ def analyzer(port):
         return (f"{case['arch']} {case['name']} unroll {case['unroll']} "
                 f"predictors {case['predictors']} diagnose {case['diagnose']}")
 
-    def traced(case):
-        """The card's run under torch.profiler: its report, its device
-        events, the kernels among them and the sweeps it ran, by device
-        type. A run that swept on the card but whose trace shows no kernel
-        is traced again, up to three times."""
-        for _ in range(3):
-            sweep.reset_sweeps()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                report, _ = run(case, "cuda")
-            sweeps = dict(sweep.SWEEPS)
-            events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-            kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
-            if kernels or not sweeps["cuda"]:
-                return report, events, kernels, sweeps
-        raise AssertionError(f"analyzer {label(case)}: swept on the card, "
-                             "but no CUDA kernel in three traces")
-
     t_phase = time.perf_counter()
     cases = analyzer_cases(port["registry"])
     run(cases[0], "cuda")  # first use: CUDA context and lazy module loads
     rows, with_kernels, host_only, host_only_events = [], 0, 0, 0
     for case in cases:
-        gpu, events, kernels, on_card = traced(case)
-        sweep.reset_sweeps()
+        (gpu, _), events, kernels, on_card = traced(port, lambda: run(case, "cuda"),
+                                                    f"analyzer {label(case)}")
+        reset_passes(port)
         cpu, _ = run(case, "cpu")
-        on_host = dict(sweep.SWEEPS)
+        on_host = passes(port)
         require(gpu.to_dict() == cpu.to_dict(),
                 f"analyzer {label(case)}: the cuda report differs from the cpu report")
-        require(on_card["cpu"] == 0 and on_card["cuda"] == on_host["cpu"],
-                f"analyzer {label(case)}: sweeps {on_card} on the card, {on_host} on the host")
-        if on_card["cuda"]:
+        require(on_card_as_on_host(on_card, on_host),
+                f"analyzer {label(case)}: passes {on_card} on the card, {on_host} on the host")
+        if on_card["waves"]["cuda"] or on_card["sweeps"]["cuda"]:
             with_kernels += 1
         else:
             host_only += 1
             host_only_events += len(events)
-        if case["name"] == "gauss-seidel" and "lcd" in normalize(case["predictors"]):
-            require(on_card["cuda"] == 1, f"analyzer {label(case)}: LCD sweep on the card")
+        if case["name"] == "gauss-seidel":
+            preds = normalize(case["predictors"])
+            want = {"cpu": 0, "cuda": ("cp" in preds) + ("lcd" in preds)}
+            require(on_card["waves"] == want,
+                    f"analyzer {label(case)}: wave passes {on_card['waves']}, want {want}")
         if case["pinned"]:
             arch = case["arch"]
             if arch in TABLE1_PINS:
@@ -774,12 +824,16 @@ def analyzer(port):
             require(abs(gpu.sim_per_it - SIM_PINS[arch]) <= 1e-9,
                     f"analyzer {arch}: sim {gpu.sim_per_it} cy/it, pinned {SIM_PINS[arch]}")
         if case["timed"]:
-            gpu_ms = statistics.median(run(case, "cuda")[1] for _ in range(ANALYZER_REPS))
-            cpu_ms = statistics.median(run(case, "cpu")[1] for _ in range(ANALYZER_REPS))
+            with PassClock(port["batch"]) as on_card_clock:
+                gpu_ms = statistics.median(run(case, "cuda")[1] for _ in range(ANALYZER_REPS))
+            with PassClock(port["batch"]) as on_host_clock:
+                cpu_ms = statistics.median(run(case, "cpu")[1] for _ in range(ANALYZER_REPS))
             device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
             rows.append({"arch": case["arch"], "kernel": case["name"],
                          "instructions": len(gpu.rows), "unroll": case["unroll"],
                          "cuda_ms": gpu_ms, "cpu_ms": cpu_ms,
+                         "cuda_pass_ms": on_card_clock.ms / ANALYZER_REPS,
+                         "cpu_pass_ms": on_host_clock.ms / ANALYZER_REPS,
                          "kernel_launches": len(kernels),
                          "copies": len(events) - len(kernels),
                          "device_ms": device_ms, "device_busy_share": device_ms / gpu_ms})
@@ -792,14 +846,288 @@ def analyzer(port):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: waves through analyze_kernels on the card and on the host
+# ---------------------------------------------------------------------------
+
+WAVE_REPS = 3  # timed runs per side and wave (median); L64 once
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        log("chip_smoke: no CUDA device; this script runs on the GPU only")
-        return 1
+def wave_cases(registry):
+    """(label, arch, [(name, text)]): benchmarks/run.py's batched_analysis
+    waves (synthetic AArch64 kernels of 3..18 instructions, cycling), 256
+    randomized kernels per machine, 64 kernels of 449..512 instructions per
+    ISA, and a 1-instruction kernel beside a 512-instruction one."""
+    cases = [(f"W{count}", "tx2", [(f"synthetic-{3 + i % 16}",
+                                    synthetic_text("aarch64", 3 + i % 16))
+                                   for i in range(count)])
+             for count in (8, 64, 256)]
+    for arch in ANALYZER_ARCHS:
+        isa = registry.get_arch(arch).isa
+        cases.append(("R256", arch, [(f"rand-{seed}", random_kernel_text(isa, seed, arch))
+                                     for seed in range(256)]))
+    for arch, isa in (("tx2", "aarch64"), ("csx", "x86")):
+        cases.append(("L64", arch, [(f"synthetic-{n}", synthetic_text(isa, n))
+                                    for n in range(449, 513)]))
+    cases.append(("ragged", "tx2", [(f"synthetic-{n}", synthetic_text("aarch64", n))
+                                    for n in (1, SYNTHETIC_N)]))
+    return cases
+
+
+class PassClock:
+    """Host-clock ms spent inside the wave engine's level-synchronous passes
+    while the ``with`` block runs. Each pass ends in its copy of ``dist`` and
+    ``parent`` to the host, so on the card the span includes the device's
+    work; the rest of a wave's wall time is its host stages."""
+
+    def __init__(self, batch):
+        self.batch, self.ms = batch, 0.0
+
+    def __enter__(self):
+        inner = self.inner = self.batch._wavefront
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                self.ms += (time.perf_counter() - t0) * 1e3
+
+        self.batch._wavefront = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.batch._wavefront = self.inner
+
+
+def timed_ms(fn, device, reps):
+    """Median wall ms of ``reps`` calls of ``fn`` (synchronized on the
+    card), and the last call's result."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def waves(port):
+    """Phase 6: each wave of :func:`wave_cases` through
+    ``analyze_kernels(use_cache=False)`` on the card and on the host, and
+    through the port's per-kernel ``analyze_kernel`` loop on the host; the
+    three must give equal ``to_dict()`` per slot, and every pass of the
+    card's wave must run on the card, as many as the host's. Prints one JSON
+    line per wave."""
+    analysis, batch, registry = port["analysis"], port["batch"], port["registry"]
+    model_for = port["api"].model_for
+    rows = []
+    for label, arch, named in wave_cases(registry):
+        spec = registry.get_arch(arch)
+        model = model_for(spec)
+        kernels = [spec.parser(text, name=name) for name, text in named]
+        reps = 1 if label == "L64" else WAVE_REPS
+
+        def wave(device):
+            return analysis.analyze_kernels(kernels, model, use_cache=False, device=device)
+
+        def loop(device):
+            return [analysis.analyze_kernel(k, model, device=device) for k in kernels]
+
+        def dicts(analyses):
+            return [a.to_report().to_dict() for a in analyses]
+
+        gpu, events, launched, on_card = traced(port, lambda: wave("cuda"), f"wave {label} {arch}")
+        reset_passes(port)
+        cpu = wave("cpu")
+        on_host = passes(port)
+        require(on_card_as_on_host(on_card, on_host) and on_card["waves"]["cuda"] >= 2,
+                f"wave {label} {arch}: passes {on_card} on the card, {on_host} on the host")
+        with PassClock(batch) as on_card_clock:
+            cuda_ms, _ = timed_ms(lambda: wave("cuda"), "cuda", reps)
+        with PassClock(batch) as on_host_clock:
+            cpu_ms, _ = timed_ms(lambda: wave("cpu"), "cpu", reps)
+        cpu_loop_ms, solo = timed_ms(lambda: loop("cpu"), "cpu", 1)
+        got = dicts(gpu)
+        require(got == dicts(cpu), f"wave {label} {arch}: the cuda wave differs from the cpu wave")
+        require(got == dicts(solo), f"wave {label} {arch}: the wave differs from the per-kernel loop")
+        graphs = {}
+        for k, (_, text) in zip(kernels, named):
+            costs = model.resolve_kernel(k)
+            if costs and text not in graphs:
+                graphs[text] = batch._compile_graph(costs)
+        row = {"wave": label, "arch": arch, "kernels": len(kernels), "distinct": len(graphs),
+               "chunks": on_card["waves"]["cuda"] - 1,
+               "cp_levels": max(max(g.cp_lvl) + 1 for g in graphs.values()),
+               "lcd_levels": max(max(g.lvl) + 1 for g in graphs.values()),
+               "launches": len(launched), "copies": len(events) - len(launched),
+               "device_ms": sum(e.time_range.elapsed_us() for e in events) / 1e3,
+               "cuda_ms": cuda_ms, "cpu_ms": cpu_ms,
+               "cuda_pass_ms": on_card_clock.ms / reps, "cpu_pass_ms": on_host_clock.ms / reps,
+               "cpu_loop_ms": cpu_loop_ms}
+        if label in ("W8", "W64"):
+            row["cuda_loop_ms"], card_solo = timed_ms(lambda: loop("cuda"), "cuda", 1)
+            require(dicts(card_solo) == got, f"wave {label}: the card's per-kernel loop differs")
+        log(json.dumps({"wave_run": row}))
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: AnalysisService on the card and on the host
+# ---------------------------------------------------------------------------
+
+CHAOS_RATE = 0.05
+DEADLINE_S = 0.02  # far below a 512-instruction analysis on either side
+
+
+def service_traces(registry, serving):
+    """benchmarks/run.py's analysis_service trace, and 256 distinct
+    randomized kernels over tx2, csx and zen: (label, requests, batch)."""
+    req = serving.AnalysisRequest
+    tx2, csx, zen = (registry.get_arch(a) for a in ("tx2", "csx", "zen"))
+    pool = [req(asm=tx2.sample_asm, arch="tx2", unroll=4, name="gs-tx2"),
+            req(asm=csx.sample_asm, arch="csx", unroll=4, name="gs-csx"),
+            req(asm=zen.sample_asm, arch="zen", unroll=4, name="gs-zen"),
+            req(asm=tx2.sample_asm, arch="tx2", unroll=1, name="gs-tx2-1x")]
+    rng = random.Random(0)
+    hot = [pool[rng.randrange(len(pool))] for _ in range(256)]
+    archs = ("tx2", "csx", "zen")
+    distinct = [req(asm=random_kernel_text(registry.get_arch(archs[i % 3]).isa, i, archs[i % 3]),
+                    arch=archs[i % 3], name=f"rand-{i}") for i in range(256)]
+    return [("hot-loop", hot, 16), ("distinct", distinct, 64)], pool
+
+
+def service(port):
+    """Phase 7: the traces of :func:`service_traces`, a seeded chaos trace
+    and a real-clock deadline through ``AnalysisService`` on the card and
+    on the host."""
+    serving, faults, res = port["serving_analysis"], port["faults"], port["resilience"]
+    clear = port["analysis"].clear_analysis_cache
+    traces, pool = service_traces(port["registry"], serving)
+    rows = []
+
+    def serve(device, requests, size, **kw):
+        clear()
+        svc = serving.AnalysisService(device=device, **kw)
+        t0 = time.perf_counter()
+        out = []
+        for start in range(0, len(requests), size):
+            out += svc.submit_batch(requests[start:start + size])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return svc, out, time.perf_counter() - t0
+
+    for label, requests, size in traces:
+        reset_passes(port)
+        gpu_svc, gpu, gpu_s = serve("cuda", requests, size)
+        on_card = passes(port)
+        reset_passes(port)
+        cpu_svc, cpu, cpu_s = serve("cpu", requests, size)
+        on_host = passes(port)
+        require(all(r.ok for r in gpu), f"service {label}: every request answered")
+        require([r.to_dict() for r in gpu] == [r.to_dict() for r in cpu]
+                and gpu_svc.stats == cpu_svc.stats,
+                f"service {label}: the card's envelopes or stats differ from the host's")
+        require(on_card_as_on_host(on_card, on_host) and on_card["waves"]["cuda"] > 0,
+                f"service {label}: passes {on_card} on the card, {on_host} on the host")
+        rows.append({"trace": label, "requests": len(requests), "batch": size,
+                     "stats": gpu_svc.stats, "passes_on_card": on_card["waves"]["cuda"],
+                     "cuda_req_per_s": len(requests) / gpu_s,
+                     "cpu_req_per_s": len(requests) / cpu_s})
+        log(json.dumps({"service_run": rows[-1]}))
+
+    # A seeded chaos trace on a virtual clock: the resilient path runs each
+    # job through the degradation ladder's per-kernel engine.
+    chaos_requests = pool + traces[1][1][:20]
+    chaos_requests = [chaos_requests[(7 * i + i // 5) % len(chaos_requests)] for i in range(64)]
+
+    def chaos(device):
+        clock = faults.VirtualClock()
+        injector = faults.FaultInjector(seed=0, rates={f"stage:{s}": CHAOS_RATE for s in
+                                                       ("dag", "cp", "lcd", "sim")})
+        cfg = res.ResilienceConfig(request_timeout_s=10.0, max_queue_depth=8,
+                                   min_rung="parse_only", clock=clock, sleep=clock.sleep)
+        svc, out, _ = serve(device, chaos_requests, 16, resilience=cfg, faults=injector)
+        return {"envelopes": [r.to_dict() for r in out], "counters": svc.counters,
+                "stats": svc.stats, "sleeps": clock.sleeps, "calls": injector.calls,
+                "fired": injector.fired}
+
+    reset_passes(port)
+    gpu = chaos("cuda")
+    on_card = passes(port)
+    reset_passes(port)
+    cpu = chaos("cpu")
+    on_host = passes(port)
+    require(gpu == cpu, "service chaos: the card's envelopes or counters differ from the host's")
+    require(on_card_as_on_host(on_card, on_host) and on_card["sweeps"]["cuda"] > 0,
+            f"service chaos: passes {on_card} on the card, {on_host} on the host")
+    codes = sorted({e["error_code"] for e in gpu["envelopes"]})
+    rows.append({"trace": "chaos", "requests": len(chaos_requests), "codes": codes,
+                 "counters": gpu["counters"], "fired": gpu["fired"],
+                 "sweeps_on_card": on_card["sweeps"]["cuda"]})
+    log(json.dumps({"service_run": rows[-1]}))
+
+    # Last: a real-clock deadline that the worker thread trips while the
+    # 512-instruction kernel is analyzed on the card. The abandoned worker
+    # runs on to its next stage boundary, so it is joined before anything
+    # reads a counter or a trace again.
+    req = serving.AnalysisRequest(asm=synthetic_text("aarch64", SYNTHETIC_N), arch="tx2",
+                                  name=f"synthetic-{SYNTHETIC_N}")
+    clear()
+    svc = serving.AnalysisService(device="cuda",
+                                  resilience=res.ResilienceConfig(request_timeout_s=DEADLINE_S))
+    t0 = time.perf_counter()
+    late = svc.submit(req)
+    answer_ms = (time.perf_counter() - t0) * 1e3
+    workers = [t for t in threading.enumerate() if t.name == "analysis-deadline-worker"]
+    for worker in workers:
+        worker.join(timeout=300)
+    require(not any(w.is_alive() for w in workers), "service deadline: the worker finished")
+    torch.cuda.synchronize()
+    require(late.error_code in ("DEGRADED", "STAGE_TIMEOUT"),
+            f"service deadline: envelope {late.error_code!r}, want DEGRADED or STAGE_TIMEOUT")
+    fresh = [serve(device, [req], 1)[1][0].to_dict() for device in ("cuda", "cpu")]
+    require(fresh[0] == fresh[1] and fresh[0]["ok"] and not fresh[0]["degraded"],
+            "service deadline: a fresh request on the card differs from the host's")
+    rows.append({"trace": "deadline", "timeout_s": DEADLINE_S, "error_code": late.error_code,
+                 "degradation": late.report.degradation if late.report else None,
+                 "attempts": late.attempts, "answer_ms": answer_ms, "workers_joined": len(workers)})
+    log(json.dumps({"service_run": rows[-1]}))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: calibration on the card and on the host
+# ---------------------------------------------------------------------------
+
+
+def calibration(port):
+    calibrate, clear = port["calibration"].calibrate, port["analysis"].clear_analysis_cache
+    rows = []
+    for arch in ("tx2", "csx", "zen"):
+        results = {}
+        for device in ("cuda", "cpu"):
+            clear()
+            results[device] = calibrate(arch, device=device)
+        require(dataclasses.asdict(results["cuda"]) == dataclasses.asdict(results["cpu"]),
+                f"calibrate {arch}: the card's result differs from the host's")
+        out = results["cuda"].to_dict()
+        rows.append({"arch": arch, "kernels": out["n_kernels"],
+                     "coverage": out["bracket_coverage"], "drift": out["drift_count"],
+                     "mape": {p: e["mape"] for p, e in out["errors"].items()},
+                     "bias": {p: e["bias"] for p, e in out["errors"].items()}})
+    log(json.dumps({"calibration": rows}))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+
+
+def port_modules():
+    """The port's modules this script drives, imported from ``src/``."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    port = {
+    return {
         "build": importlib.import_module("repro_torch.kernels._build"),
         "ops": importlib.import_module("repro_torch.kernels.ops"),
         "rms": importlib.import_module("repro_torch.kernels.rmsnorm"),
@@ -812,8 +1140,20 @@ def main() -> int:
         "api": importlib.import_module("repro_torch.api"),
         "analysis": importlib.import_module("repro_torch.core.analysis"),
         "sweep": importlib.import_module("repro_torch.core.analysis.sweep"),
+        "batch": importlib.import_module("repro_torch.core.analysis.batch"),
         "registry": importlib.import_module("repro_torch.core.registry"),
+        "serving_analysis": importlib.import_module("repro_torch.serving.analysis"),
+        "faults": importlib.import_module("repro_torch.serving.faults"),
+        "resilience": importlib.import_module("repro_torch.serving.resilience"),
+        "calibration": importlib.import_module("repro_torch.core.calibration"),
     }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device; this script runs on the GPU only")
+        return 1
+    port = port_modules()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -823,9 +1163,11 @@ def main() -> int:
     log(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                     "device": name, "count": torch.cuda.device_count()}))
 
+    seconds = {}
     t0 = time.perf_counter()
     build_logs = port["build"].build()
-    log(json.dumps({"build_s": time.perf_counter() - t0, "built": sorted(build_logs)}))
+    seconds["build"] = time.perf_counter() - t0
+    log(json.dumps({"build_s": seconds["build"], "built": sorted(build_logs)}))
     for src, text in build_logs.items():
         for line in text.splitlines():
             if "Compiling entry function" in line:
@@ -833,13 +1175,22 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 log(f"  {src}:   {line.strip()}")
 
+    t0 = time.perf_counter()
     kernels = check_kernels(port)
+    seconds["kernels"] = time.perf_counter() - t0
     launches = {}
     for phase in PHASES:
+        t0 = time.perf_counter()
         _, run_launches = serve(port, name, phase)
+        seconds[f"serve {phase['arch']}"] = time.perf_counter() - t0
         for k, v in run_launches.items():
             launches[k] = launches.get(k, 0) + v
-    analyzer(port)
+    for label, fn in (("analyzer", analyzer), ("waves", waves), ("service", service),
+                      ("calibration", calibration)):
+        t0 = time.perf_counter()
+        fn(port)
+        seconds[label] = time.perf_counter() - t0
+    log(json.dumps({"phase_seconds": seconds}))
 
     sources = {
         "fused_rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),

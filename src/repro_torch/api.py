@@ -21,21 +21,23 @@ architecture id or alias resolved through the central registry
 Every analysis knob beyond ``source``/``arch``/``name``/``device`` travels in
 one :class:`~repro_torch.core.analysis.options.AnalyzeOptions` object; the
 legacy keyword spellings (``unroll=``, ``predictors=``, ``diagnose=``,
-``degrade=``) still work with a ``DeprecationWarning`` and normalize to the
-identical options — and cache identity — as the ``options=`` form.
+``timeout_s=``, ``degrade=``) still work with a ``DeprecationWarning`` and
+normalize to the identical options — and cache identity — as the
+``options=`` form.
 
-``device`` is where the LCD sweep runs as float64 tensors: the CUDA device
-unless the caller names another, and a call that names none raises when
-there is no card.  The report is the same on every device, bit for bit.
+``device`` is where the analysis's tensor passes run as float64 tensors: the
+CUDA device unless the caller names another, and a call that names none
+raises when there is no card.  The report is the same on every device, bit
+for bit.
 
 Not ported yet, and raising instead of running: HLO sources (an accelerator
-target for this port replaces the TPU one, ROADMAP item 10), and
-``timeout_s``, whose deadlines belong to the serving tier (ROADMAP item A5,
-which also brings ``AnalysisService``).  ``degrade=True`` without a deadline
-walks the degradation ladder as in the reference.
+target for this port replaces the TPU one, ROADMAP item 10).
 
 Analyses share the process-level LRU and one warm :class:`MachineModel` per
-architecture, so hot loops repeated across calls are analyzed once.
+architecture, so hot loops repeated across calls are analyzed once.  For
+request/response serving (batching, per-request error envelopes), use
+:class:`repro_torch.serving.analysis.AnalysisService` — it is built on this
+facade.
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ __all__ = [
     "register_arch",
     "list_arch_ids",
     "asm_arch_ids",
+    "AnalysisService",
+    "AnalysisRequest",
+    "AnalysisResponse",
 ]
 
 # One warm model per architecture for the process lifetime: its instruction-
@@ -142,12 +147,13 @@ def analyze_raw(source, arch: str = "tx2", options=None,
     working with a DeprecationWarning; a bare int ``options`` is the old
     positional ``unroll``):
 
-    ``degrade=True`` falls down the degradation ladder when a stage fails —
-    full → bracket (no simulator) → optimistic-TP-only → parse-only —
-    instead of raising, and the returned analysis carries ``degradation`` /
-    ``stages_completed`` saying which rung answered.  ``timeout_s`` raises
-    ``NotImplementedError``: deadlines come with the serving tier (ROADMAP
-    item A5).
+    ``timeout_s`` puts the analysis under a deadline checked at every stage
+    boundary; with ``degrade=True`` an expired deadline (or a failed stage)
+    falls down the degradation ladder — full → bracket (no simulator) →
+    optimistic-TP-only → parse-only — instead of raising, and the returned
+    analysis carries ``degradation`` / ``stages_completed`` saying which
+    rung answered.  Without ``degrade``, a timeout raises
+    :class:`repro_torch.serving.resilience.StageTimeout`.
 
     ``predictors`` selects a subset of ``("tp", "cp", "lcd", "sim")``;
     the default computes all four (see
@@ -163,7 +169,7 @@ def analyze_raw(source, arch: str = "tx2", options=None,
     any), or a corpus path.  A matching entry fills ``measured_block`` and
     lets the diagnostics pass emit ``PREDICTION_DRIFT``.
 
-    ``device`` is where the LCD sweep runs (``None``: the CUDA device,
+    ``device`` is where the tensor passes run (``None``: the CUDA device,
     which raises when there is none).
     """
     device = resolve_device(device)
@@ -174,17 +180,17 @@ def analyze_raw(source, arch: str = "tx2", options=None,
     spec = get_arch(opts.model or arch)
     if spec.is_hlo:
         raise ValueError(_HLO_NOT_PORTED)
-    if opts.timeout_s is not None:
-        raise NotImplementedError(
-            "timeout_s= needs the serving tier's deadlines, which ROADMAP "
-            "item A5 ports; use degrade=True alone, or repro.api meanwhile")
     opts = opts.resolved(spec.id)  # validates unroll, loads the corpus
     kernel = _coerce_kernel(source, spec, name)
-    if not opts.degrade:
+    if opts.timeout_s is None and not opts.degrade:
         return analyze_kernels([kernel], model_for(spec), options=opts,
                                device=device)[0]
+    from repro_torch.serving.resilience import Deadline
+    checkpoint = (Deadline.after(opts.timeout_s).check
+                  if opts.timeout_s is not None else None)
     analysis = analyze_kernel_ladder(
-        kernel, model_for(spec), opts.unroll, min_rung="parse_only",
+        kernel, model_for(spec), opts.unroll, checkpoint=checkpoint,
+        min_rung="parse_only" if opts.degrade else "full",
         predictors=opts.predictors, diagnose=opts.diagnose, device=device)
     return apply_measurement(analysis, opts.measurements)
 
@@ -207,7 +213,7 @@ def analyze(source, arch: str = "tx2", options=None,
     with ``diagnose=True``, and the schema-v5 ``measured_block`` /
     ``measured_source`` when ``measurements`` matched.
 
-    ``device`` is where the LCD sweep runs (``None``: the CUDA device,
+    ``device`` is where the tensor passes run (``None``: the CUDA device,
     which raises when there is none).
     """
     device = resolve_device(device)
@@ -225,3 +231,12 @@ def analyze(source, arch: str = "tx2", options=None,
         raise ValueError(_HLO_NOT_PORTED)
     return analyze_raw(source, arch=spec.id, options=opts, name=name,
                        device=device).to_report()
+
+
+def __getattr__(attr):
+    # Service classes are exposed lazily, as in ``repro.api``: plain
+    # analyze() callers do not import the serving tier.
+    if attr in ("AnalysisService", "AnalysisRequest", "AnalysisResponse"):
+        from repro_torch.serving import analysis as _serving
+        return getattr(_serving, attr)
+    raise AttributeError(f"module 'repro_torch.api' has no attribute '{attr}'")

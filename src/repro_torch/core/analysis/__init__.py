@@ -1,6 +1,7 @@
-"""The single-kernel analysis engine of ``repro.core.analysis``: TP (uniform
-and balanced), DAG, CP, LCD, the simulator's bracket closure, diagnostics
-and the schema-v5 report, with the LCD sweep on torch tensors."""
+"""The analysis engine of ``repro.core.analysis``: TP (uniform and
+balanced), DAG, CP, LCD, the simulator's bracket closure, diagnostics and the
+schema-v5 report, per kernel (the LCD sweep on torch tensors) and per wave
+(``analyze_wave``: the CP and LCD passes on torch tensors)."""
 
 from repro_torch.core.analysis.throughput import (ThroughputResult,
                                                   throughput_analysis,
@@ -27,6 +28,7 @@ from repro_torch.core.analysis.analyze import (ANALYSIS_STAGES, Analysis,
                                                analyze_kernels,
                                                clear_analysis_cache,
                                                normalize_predictors)
+from repro_torch.core.analysis.batch import analyze_wave
 from repro_torch.core.analysis.report import (AnalysisReport, InstructionRow,
                                               LCDChainRow, SCHEMA_VERSION)
 from repro_torch.core.analysis.render import register_renderer, render
@@ -63,6 +65,7 @@ __all__ = [
     "ThroughputResult",
     "analyze_kernel",
     "analyze_kernels",
+    "analyze_wave",
     "build_dag",
     "clear_analysis_cache",
     "critical_path",

@@ -19,10 +19,11 @@ predictors + device type) for serving paths that analyze many — often
 repeated — kernels concurrently.
 
 Every entry point here that runs a tensor pass takes ``device``: the LCD
-sweep runs as float64 tensors there, and its results leave it as Python
-floats and ints, so an ``Analysis`` holds no tensors.  The other stages
-(cost resolution, the water-filling, the DAG, CP, the simulator) run on the
-host, as in the reference.  ``device=None`` means the CUDA device, and
+sweep of ``analyze_kernel``, and the CP and LCD passes of the wave engine
+behind ``analyze_kernels``, run as float64 tensors there, and their results
+leave it as Python floats and ints, so an ``Analysis`` holds no tensors.  The
+other stages (cost resolution, the water-filling, the DAG, the per-kernel
+CP, the simulator) run on the host, as in the reference.  ``device=None`` means the CUDA device, and
 raises without one (:func:`repro_torch.resolve_device`); pass ``"cpu"`` to
 run on the host.
 """
@@ -479,13 +480,16 @@ def analyze_kernels(
     the corpus matches by kernel *name*, while the cache matches by kernel
     *text*, so the cached object itself stays measurement-clean.
 
-    Cache misses run through :func:`analyze_kernel` one after another.  The
-    reference dispatches them as one wave through its batched engine
-    (``repro.core.analysis.batch.analyze_wave``), which it holds
-    bit-identical to this loop; the port's wave engine is a later slice.  A
-    batch mixing ISAs is rejected, as in the reference (one model analyzes
-    one ISA's kernels — cross-ISA *requests* are a serving-layer concern).
+    Cache misses are dispatched as one wave through the batched engine
+    (:func:`repro_torch.core.analysis.batch.analyze_wave`) on ``device`` —
+    bit-identical to a sequential ``analyze_kernel`` loop, including with
+    ``use_cache=False``, where the whole batch is one wave.  A batch mixing
+    ISAs is rejected: the wave engine stacks one model's port/graph layout,
+    so callers must split per ISA (one model analyzes one ISA's kernels —
+    cross-ISA *requests* are a serving-layer concern).
     """
+    from repro_torch.core.analysis.batch import analyze_wave
+
     device = resolve_device(device)
     if isinstance(options, int):  # legacy positional unroll
         legacy.setdefault("unroll", options)
@@ -504,14 +508,9 @@ def analyze_kernels(
             f"mixed-ISA batch: kernels span {sorted(isas)}; analyze_kernels "
             f"dispatches one wave per machine model — split the batch per "
             f"ISA")
-
-    def run(batch: List[Kernel]) -> List[Analysis]:
-        return [analyze_kernel(kernel, model, unroll, predictors=preds,
-                               diagnose=diagnose, device=device)
-                for kernel in batch]
-
     if not use_cache:
-        wave = run(kernels)
+        wave = analyze_wave(kernels, model, unroll=unroll, predictors=preds,
+                            diagnose=diagnose, device=device)
         if corpus is None:
             return wave
         return [apply_measurement(analysis, corpus)
@@ -541,7 +540,9 @@ def analyze_kernels(
         miss_keys.append(key)
 
     if miss_ix:
-        wave = run([kernels[i] for i in miss_ix])
+        wave = analyze_wave([kernels[i] for i in miss_ix], model,
+                            unroll=unroll, predictors=preds,
+                            diagnose=diagnose, device=device)
         for slot, key, analysis in zip(miss_ix, miss_keys, wave):
             _cache.put(key, analysis)  # measurement-clean
             out[slot] = _requester_view(analysis, kernels[slot].name, corpus)

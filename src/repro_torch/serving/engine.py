@@ -6,7 +6,9 @@ greedy decode steps until every request has its tokens or hit ``eos_id``,
 and the next wave takes the freed slots. The semantics are those of
 ``repro.serving.engine.ServeEngine``, for the dense, ssm and hybrid families;
 the default run config routes the model through the kernel-backed ops
-(``attention_impl="flash"``).
+(``attention_impl="flash"``). Beside decoding, the engine serves
+kernel-analysis requests through a co-resident ``AnalysisService`` on its
+own device (``analysis``, ``analyze_asm``).
 """
 
 from __future__ import annotations
@@ -44,6 +46,21 @@ class ServeEngine:
         self.params = params
         self.batch_size = batch_size
         self.max_len = max_len
+        self._analysis = None
+
+    @property
+    def analysis(self):
+        """Co-resident kernel-analysis service (lazily constructed) on the
+        engine's device, sharing this process's analysis LRU — see
+        ``repro_torch.serving.analysis``."""
+        if self._analysis is None:
+            from repro_torch.serving.analysis import AnalysisService
+            self._analysis = AnalysisService(device=self.device)
+        return self._analysis
+
+    def analyze_asm(self, requests):
+        """Serve a batch of assembly-analysis requests alongside decoding."""
+        return self.analysis.analyze_batch(list(requests))
 
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 16,
                  eos_id: Optional[int] = None) -> List[GenerationResult]:

@@ -16,6 +16,7 @@ import repro.core.analysis.analyze as ref_analyze
 import repro_torch.api as port_api
 import repro_torch.core.analysis as port_analysis
 import repro_torch.core.analysis.analyze as port_analyze
+import repro_torch.core.analysis.batch as port_batch
 import repro_torch.core.analysis.sweep as port_sweep
 from repro_torch.core.registry import get_arch
 from repro_torch.core.validation import TABLE1
@@ -176,13 +177,19 @@ def test_sources_paths_and_kernels(tmp_path):
 
 
 def test_timeout_raises_not_implemented():
+    # ``timeout_s`` is ported now (the serving tier's deadlines): under a
+    # generous deadline it no longer raises, and the report is the
+    # reference's. tests/test_torch_resilience.py covers expired deadlines.
     text = get_arch("tx2").sample_asm
-    for opts in (port_api.AnalyzeOptions(timeout_s=1.0),
-                 port_api.AnalyzeOptions(timeout_s=1.0, degrade=True)):
-        with pytest.raises(NotImplementedError, match="A5"):
-            port_api.analyze(text, arch="tx2", device="cpu", options=opts)
-        with pytest.raises(NotImplementedError, match="A5"):
-            port_api.analyze_raw(text, arch="tx2", device="cpu", options=opts)
+    for opts in (dict(unroll=4, timeout_s=60.0),
+                 dict(unroll=4, timeout_s=60.0, degrade=True)):
+        ref, port = both(text, "tx2", **opts)
+        assert not port.degraded
+        assert port.to_dict() == ref.to_dict()
+        raw = port_api.analyze_raw(text, arch="tx2", name="gauss-seidel",
+                                   device="cpu",
+                                   options=port_api.AnalyzeOptions(**opts))
+        assert raw.to_report().to_dict() == ref.to_dict()
 
 
 def test_hlo_sources_raise_value_error(tmp_path):
@@ -206,12 +213,15 @@ def test_cache_separates_devices_and_serves_views():
     assert len(keys) == 2
     port_analysis.clear_analysis_cache()
     port_sweep.reset_sweeps()
+    port_batch.reset_wave_passes()
     renamed = get_arch("zen").parser(text, name="b")
     opts = port_api.AnalyzeOptions(unroll=4)
     first, dup = port_analysis.analyze_kernels([kernel, renamed], model, opts,
                                                device="cpu")
     (hit,) = port_analysis.analyze_kernels([kernel], model, opts, device="cpu")
-    assert port_sweep.SWEEPS == {"cpu": 1, "cuda": 0}  # analyzed once
+    # Analyzed once, as one wave: its CP pass and one LCD chunk pass.
+    assert port_batch.WAVE_PASSES == {"cpu": 2, "cuda": 0}
+    assert port_sweep.SWEEPS == {"cpu": 0, "cuda": 0}
     assert port_analyze._cache.stats == {"hits": 2, "misses": 1}
     assert (first.kernel.name, dup.kernel.name, hit.kernel.name) == ("a", "b", "a")
     assert dup.lcd is first.lcd and hit is first

@@ -43,7 +43,11 @@ def test_module_list_covers_the_slice():
                  "repro_torch.core.analysis.throughput",
                  "repro_torch.core.analysis.diagnostics",
                  "repro_torch.core.analysis.report", "repro_torch.core.analysis.render",
-                 "repro_torch.core.analysis.analyze", "repro_torch.core.sim.engine"):
+                 "repro_torch.core.analysis.analyze", "repro_torch.core.sim.engine",
+                 "repro_torch.core.analysis.batch", "repro_torch.core.machine.lint",
+                 "repro_torch.core.calibration.calibrate", "repro_torch.core.bench",
+                 "repro_torch.core.bench.runner", "repro_torch.serving.resilience",
+                 "repro_torch.serving.faults", "repro_torch.serving.analysis"):
         assert name in MODULES
 
 
@@ -104,6 +108,7 @@ def test_analyze_raises_without_a_card():
             "        kernel, model, rung='tp_only'),\n"
             "    'analyze_kernel_ladder': lambda: analysis.analyze_kernel_ladder(kernel, model),\n"
             "    'analyze_kernels': lambda: analysis.analyze_kernels([kernel], model),\n"
+            "    'analyze_wave': lambda: analysis.analyze_wave([kernel], model),\n"
             "    'lcd_from_dag': lambda: analysis.lcd_from_dag(dag, len(kernel)),\n"
             "    'loop_carried_dependencies': lambda: analysis.loop_carried_dependencies(\n"
             "        kernel, model),\n"
