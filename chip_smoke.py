@@ -57,7 +57,21 @@ the repository is not beside it). It
    equal the host's;
 8. calibrates tx2, csx and zen on the card and on the host: the results
    must be equal field for field;
-9. prints each phase's seconds, a JSON line of per-kernel numbers and,
+9. analyzes accelerator graphs on the h100 target (``api.analyze(...,
+   arch="h100")``) on the card and on the host, whose reports must be
+   equal: tests/test_api.py's and tests/test_hlo.py's HLO texts (their
+   while bodies' LCD sweeps on the card, CUDA kernels in the trace); the
+   tinyllama-1.1b forward at full width and depth (bf16, 4 x 512 tokens,
+   chunked attention, seed-0 weights) exported with ``torch.export`` on
+   the card, with no ATen op unmapped, the analyzer's dot FLOPs equal to
+   ``FlopCounterMode``'s, and the exported forward's device time at or
+   above the roofline bound; and a ``while_loop`` of 16 trips of
+   tanh(x @ W) at 4096 x 4096 bf16, whose trip count must be 16 and whose
+   LCD must be carried by x;
+10. runs ibench (``populate_entry``: serial-chain latency and stacked
+   parallel-chain throughput) on the card for its default ops, and its dry
+   run, which must print the reference's table;
+11. prints each phase's seconds, a JSON line of per-kernel numbers and,
    last, the JSON result line.
 
 Any failed check raises, so the script exits non-zero before the last line.
@@ -1122,6 +1136,308 @@ def calibration(port):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: accelerator graphs (HLO text and torch.export programs)
+# ---------------------------------------------------------------------------
+
+# tests/test_api.py's WHILE_HLO and tests/test_hlo.py's fixtures (SIMPLE_HLO
+# and its known_trip_count variant), copied.
+WHILE_HLO = """
+HloModule api_test, num_partitions=1
+
+%body (p: (s32[], f32[8,128])) -> (s32[], f32[8,128]) {
+  %p = (s32[], f32[8,128]) parameter(0)
+  %i = s32[] get-tuple-element(%p), index=0
+  %one = s32[] constant(1)
+  %i2 = s32[] add(%i, %one)
+  %x = f32[8,128]{1,0} get-tuple-element(%p), index=1
+  %y = f32[8,128]{1,0} multiply(%x, %x)
+  ROOT %t = (s32[], f32[8,128]) tuple(%i2, %y)
+}
+
+%cond (p: (s32[], f32[8,128])) -> pred[] {
+  %p = (s32[], f32[8,128]) parameter(0)
+  %i = s32[] get-tuple-element(%p), index=0
+  %n = s32[] constant(8)
+  ROOT %lt = pred[] compare(%i, %n), direction=LT
+}
+
+ENTRY %main (a: f32[8,128]) -> f32[8,128] {
+  %a = f32[8,128]{1,0} parameter(0)
+  %zero = s32[] constant(0)
+  %init = (s32[], f32[8,128]) tuple(%zero, %a)
+  %w = (s32[], f32[8,128]) while(%init), condition=%cond, body=%body
+  ROOT %out = f32[8,128]{1,0} get-tuple-element(%w), index=1
+}
+"""
+SIMPLE_HLO = """
+HloModule test_module, num_partitions=4
+
+%add_red (a: f32[], b: f32[]) -> f32[] {
+  %a = f32[] parameter(0)
+  %b = f32[] parameter(1)
+  ROOT %r = f32[] add(%a, %b)
+}
+
+%body (p: (s32[], f32[8,128])) -> (s32[], f32[8,128]) {
+  %p = (s32[], f32[8,128]) parameter(0)
+  %i = s32[] get-tuple-element(%p), index=0
+  %one = s32[] constant(1)
+  %i2 = s32[] add(%i, %one)
+  %x = f32[8,128]{1,0} get-tuple-element(%p), index=1
+  %y = f32[8,128]{1,0} multiply(%x, %x)
+  %z = f32[8,128]{1,0} all-reduce(%y), channel_id=1, replica_groups={{0,1,2,3}}, to_apply=%add_red
+  ROOT %t = (s32[], f32[8,128]) tuple(%i2, %z)
+}
+
+%cond (p: (s32[], f32[8,128])) -> pred[] {
+  %p = (s32[], f32[8,128]) parameter(0)
+  %i = s32[] get-tuple-element(%p), index=0
+  %n = s32[] constant(10)
+  ROOT %lt = pred[] compare(%i, %n), direction=LT
+}
+
+ENTRY %main (arg: f32[8,128], w: f32[128,256]) -> f32[8,256] {
+  %arg = f32[8,128]{1,0} parameter(0)
+  %w = f32[128,256]{1,0} parameter(1)
+  %zero = s32[] constant(0)
+  %init = (s32[], f32[8,128]) tuple(%zero, %arg)
+  %loop = (s32[], f32[8,128]) while(%init), condition=%cond, body=%body
+  %out = f32[8,128]{1,0} get-tuple-element(%loop), index=1
+  ROOT %dot = f32[8,256]{1,0} dot(%out, %w), lhs_contracting_dims={1}, rhs_contracting_dims={0}
+}
+"""
+HLO_TEXTS = (
+    ("while_api", WHILE_HLO, 8),
+    ("simple", SIMPLE_HLO, 10),
+    ("known_trips", SIMPLE_HLO.replace(
+        "while(%init), condition=%cond, body=%body",
+        'while(%init), condition=%cond, body=%body, '
+        'backend_config={"known_trip_count":{"n":"7"}}'), 7),
+)
+GRAPH_ARCH = "tinyllama-1.1b"
+LOOP_TRIPS, LOOP_WIDTH = 16, 4096
+
+
+def dot_flops(module, cost):
+    """The analyzer's dot FLOPs of one run: each dot's FLOPs times the
+    executions of its computation."""
+    counts = cost.execution_counts()
+    return sum(counts.get(comp.name, 0.0) * cost.op_flops(op, comp)
+               for comp in module.computations.values()
+               for op in comp.ops if op.opcode == "dot")
+
+
+def on_both(port, source, what):
+    """``api.analyze(source, arch="h100")`` on the card (traced) and on the
+    host: the two reports must be equal, and every LCD sweep of the card's
+    run must run on the card with CUDA kernels in its trace. Returns the
+    card's report, its sweeps and the wall ms on both sides."""
+    api = port["api"]
+    gpu, _, kernels, on_card = traced(
+        port, lambda: api.analyze(source, arch="h100", device="cuda"), what)
+    cuda_ms, _ = timed_ms(lambda: api.analyze(source, arch="h100", device="cuda"), "cuda", 1)
+    reset_passes(port)
+    cpu_ms, cpu = timed_ms(lambda: api.analyze(source, arch="h100", device="cpu"), "cpu", 1)
+    on_host = passes(port)
+    require(gpu.to_dict() == cpu.to_dict(), f"{what}: the cuda report differs from the cpu report")
+    require(on_card_as_on_host(on_card, on_host),
+            f"{what}: passes {on_card} on the card, {on_host} on the host")
+    return gpu, on_card["sweeps"]["cuda"], len(kernels), cuda_ms, cpu_ms
+
+
+class Forward(torch.nn.Module):
+    """A model's forward, tokens to logits, as one module to export."""
+
+    def __init__(self, models, model, cfg, run):
+        super().__init__()
+        self.forward_hidden, self.lm_logits = models.forward_hidden, models.transformer.lm_logits
+        self.model, self.cfg, self.run = model, cfg, run
+
+    def forward(self, tokens):
+        x, _ = self.forward_hidden(self.model, self.cfg, self.run, tokens)
+        return self.lm_logits(self.model, self.cfg, x)
+
+
+class TanhChain(torch.nn.Module):
+    """LOOP_TRIPS trips of x = tanh(x @ w) as a ``while_loop``."""
+
+    def forward(self, x, w):
+        from torch._higher_order_ops.while_loop import while_loop
+
+        return while_loop(lambda i, x: i < LOOP_TRIPS,
+                          lambda i, x: (i + 1, torch.tanh(x @ w)),
+                          (torch.zeros((), dtype=torch.int64, device=x.device), x))[1]
+
+
+def accelerator_graphs(port):
+    """Phase 9: (a) the HLO texts of HLO_TEXTS through ``api.analyze(text,
+    arch="h100")`` on the card and on the host; (b) the tinyllama-1.1b
+    forward at full width and depth (bf16, B BATCH x S PROMPT_LEN, chunked
+    attention, the serve phase's random weights from seed 0) exported with
+    ``torch.export`` on the card and analyzed on both sides: nothing left
+    unmapped, the dot FLOPs equal to ``FlopCounterMode``'s count of a run,
+    and the measured device time of the exported forward at or above the
+    roofline bound; (c) a ``while_loop`` of LOOP_TRIPS trips of tanh(x @ W)
+    at LOOP_WIDTH^2 bf16: trip count LOOP_TRIPS, the LCD carried by x."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    hlo, export, costs = port["hlo"], port["hlo_export"], port["hlo_costs"]
+    cfg_mod, models = port["configs"], port["models"]
+    rows = []
+    for label, text, trips in HLO_TEXTS:
+        report, sweeps, launched, cuda_ms, cpu_ms = on_both(port, text, f"hlo {label}")
+        module = hlo.parse_hlo(text)
+        cost = costs.HLOCostModel(module, hlo.H100_SXM)
+        (loop,) = [op for op in module.entry.ops if op.opcode == "while"]
+        require(cost.while_trip_count(loop) == trips and sweeps == 1 and launched > 0
+                and report.lcd_block > 0 and report.lcd_chains[0].length > 0,
+                f"hlo {label}: trips {cost.while_trip_count(loop)} (want {trips}), "
+                f"{sweeps} sweeps and {launched} kernels on the card")
+        rows.append({"graph": label, "trips": trips, "sweeps_on_card": sweeps,
+                     "kernel_launches": launched, "lcd_s": report.lcd_block,
+                     "cp_s": report.cp_block, "bound_s": report.tp_block,
+                     "cuda_ms": cuda_ms, "cpu_ms": cpu_ms})
+        log(json.dumps({"graph_run": rows[-1]}))
+
+    # (b) the tinyllama forward, exported on the card.
+    cfg = cfg_mod.get_config(GRAPH_ARCH)
+    model = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                               device="cuda")
+    run = cfg_mod.RunConfig(attention_impl="chunked")
+    tok_gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, PROMPT_LEN), generator=tok_gen).cuda()
+    fwd = Forward(models, model, cfg, run)
+    t0 = time.perf_counter()
+    ep = export.core_aten(torch.export.export(fwd, (tokens,)))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    module = hlo.lower_exported(ep)
+    lower_s = time.perf_counter() - t0
+    require(module.unmapped == (), f"{GRAPH_ARCH}: unmapped ATen ops {module.unmapped}")
+    t0 = time.perf_counter()
+    cp = hlo.hlo_critical_path(module)
+    cp_s = time.perf_counter() - t0
+    report, sweeps, _, cuda_ms, cpu_ms = on_both(port, ep, f"export {GRAPH_ARCH}")
+    require(report.cp_block == cp.seconds and sweeps == 0,
+            f"export {GRAPH_ARCH}: CP {report.cp_block} against {cp.seconds}, {sweeps} sweeps")
+    cost = costs.HLOCostModel(module, hlo.H100_SXM)
+    analyzer_dots = dot_flops(module, cost)
+    by_opcode = {}  # the bytes term's split: each op's operands and result
+    for op in module.entry.ops:
+        by_opcode[op.opcode] = by_opcode.get(op.opcode, 0.0) + cost.op_bytes(op, module.entry)
+    program = ep.module()
+    with torch.inference_mode():
+        with FlopCounterMode(display=False) as counter:
+            logits = program(tokens)
+        want = fwd(tokens)
+    counted = counter.get_total_flops()
+    roof = hlo.roofline_from_exported(ep, name=GRAPH_ARCH)
+    require(analyzer_dots == counted == roof.ca_raw_flops,
+            f"export {GRAPH_ARCH}: analyzer dot FLOPs {analyzer_dots}, FlopCounterMode "
+            f"{counted}, roofline_from_exported {roof.ca_raw_flops}")
+    require(logits.shape == (BATCH, PROMPT_LEN, cfg.padded_vocab)
+            and bool(torch.isfinite(logits).all()), f"export {GRAPH_ARCH}: logits")
+    logits_close(f"export {GRAPH_ARCH}: exported_vs_eager", logits, want, torch.bfloat16)
+    with torch.inference_mode():
+        measured_ms, span_ms = time_ms(lambda: program(tokens), reps=5, warmup=1)
+    bound_ms = report.tp_block * 1e3
+    row = {"graph": f"{GRAPH_ARCH} forward", "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": BATCH, "seq": PROMPT_LEN, "fx_nodes": len(ep.graph.nodes),
+           "hlo_ops": len(module.entry.ops), "export_s": export_s, "lower_s": lower_s,
+           "cp_sweep_s": cp_s, "cuda_ms": cuda_ms, "cpu_ms": cpu_ms,
+           "terms_ms": {k: v * 1e3 for k, v in report.port_pressure.items()},
+           "bound_ms": bound_ms, "bound_by": report.bottleneck_port,
+           "cp_ms": report.cp_block * 1e3, "dot_flops": analyzer_dots,
+           "bytes": sum(by_opcode.values()),
+           "bytes_by_opcode": dict(sorted(by_opcode.items(), key=lambda kv: -kv[1])[:8]),
+           "flops": report.port_pressure["TC"] * hlo.H100_SXM.peak_flops,
+           "measured_ms": measured_ms, "span_ms": span_ms,
+           "measured_over_bound": measured_ms / bound_ms,
+           "roofline_from_exported": roof.row(), "clocks": clocks()}
+    log(json.dumps({"graph_run": row}))
+    require(measured_ms >= bound_ms,
+            f"export {GRAPH_ARCH}: measured {measured_ms} ms beats the bound {bound_ms} ms")
+    rows.append(row)
+    del program, model, fwd, ep, logits, want
+    torch.cuda.empty_cache()
+
+    # (c) a carried chain: tanh(x @ W), LOOP_TRIPS trips.
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(LOOP_WIDTH, LOOP_WIDTH, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(LOOP_WIDTH, LOOP_WIDTH, generator=gen, device="cuda")
+         / LOOP_WIDTH ** 0.5).to(torch.bfloat16)
+    ep = export.core_aten(torch.export.export(TanhChain(), (x, w)))
+    module = hlo.lower_exported(ep)
+    (loop,) = [op for op in module.entry.ops if op.opcode == "while"]
+    trips = costs.HLOCostModel(module, hlo.H100_SXM).while_trip_count(loop)
+    report, sweeps, launched, cuda_ms, cpu_ms = on_both(port, ep, "export while_loop")
+    longest = max(report.lcd_chains, key=lambda c: c.length)
+    require(trips == LOOP_TRIPS and longest.carried_by == 1 and sweeps == 1 and launched > 0,
+            f"export while_loop: trips {trips}, LCD carried by state[{longest.carried_by}], "
+            f"{sweeps} sweeps and {launched} kernels on the card")
+    program = ep.module()
+    with torch.inference_mode():
+        y = program(x, w)
+        want = TanhChain()(x, w)
+        measured_ms, span_ms = time_ms(lambda: program(x, w), reps=5, warmup=1)
+    compare("export while_loop", [LOOP_WIDTH, LOOP_WIDTH], y, want)
+    row = {"graph": f"while_loop tanh(x @ W) x{LOOP_TRIPS}", "width": LOOP_WIDTH,
+           "trips": trips, "lcd_ms": report.lcd_block * 1e3, "lcd_members": list(longest.members),
+           "cp_ms": report.cp_block * 1e3, "bound_ms": report.tp_block * 1e3,
+           "measured_ms": measured_ms, "span_ms": span_ms,
+           "measured_over_lcd": measured_ms / (report.lcd_block * 1e3),
+           "cuda_ms": cuda_ms, "cpu_ms": cpu_ms, "clocks": clocks()}
+    log(json.dumps({"graph_run": row}))
+    require(measured_ms >= report.lcd_block * 1e3,
+            f"export while_loop: measured {measured_ms} ms beats the LCD {report.lcd_block * 1e3} ms")
+    rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: ibench on the card
+# ---------------------------------------------------------------------------
+
+# ``python -m repro.core.bench.ibench --dry-run``'s output, copied.
+DRY_RUN_TABLE = """\
+op        lat µs/op  1/tput µs/op   ILP
+---------------------------------------
+exp           2.250         0.750  3.00
+tanh          1.580         0.527  3.00
+rsqrt         2.060         0.687  3.00
+add           4.390         1.463  3.00
+mul           3.940         0.985  4.00
+"""
+
+
+def ibench(port):
+    """Phase 10: ``populate_entry`` (serial-chain latency and stacked
+    parallel-chain throughput) on the card for each of ``DEFAULT_OPS`` with
+    the default clock and sync; every time finite and positive. The dry run
+    must print the reference's table."""
+    import contextlib
+    import io
+
+    ib = port["ibench"]
+    rows = []
+    for name in ib.DEFAULT_OPS:
+        result, entry = ib.populate_entry(name, ib._op_factory(name), device="cuda")
+        times = (result.latency_us, result.inverse_throughput_us)
+        require(all(math.isfinite(t) and t > 0 for t in times) and entry.latency == times[0],
+                f"ibench {name}: times {times}")
+        rows.append({"op": name, "latency_us": result.latency_us,
+                     "inverse_throughput_us": result.inverse_throughput_us,
+                     "ilp_speedup": result.ilp_speedup, "chain_length": result.chain_length,
+                     "n_parallel": result.n_parallel, "shape": [128, 128]})
+    log(json.dumps({"ibench": rows}))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ib.main(["--dry-run"])
+    require(out.getvalue() == DRY_RUN_TABLE, f"ibench --dry-run printed {out.getvalue()!r}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def port_modules():
@@ -1146,6 +1462,10 @@ def port_modules():
         "faults": importlib.import_module("repro_torch.serving.faults"),
         "resilience": importlib.import_module("repro_torch.serving.resilience"),
         "calibration": importlib.import_module("repro_torch.core.calibration"),
+        "hlo": importlib.import_module("repro_torch.core.hlo"),
+        "hlo_export": importlib.import_module("repro_torch.core.hlo.export"),
+        "hlo_costs": importlib.import_module("repro_torch.core.hlo.costs"),
+        "ibench": importlib.import_module("repro_torch.core.bench.ibench"),
     }
 
 
@@ -1186,7 +1506,8 @@ def main() -> int:
         for k, v in run_launches.items():
             launches[k] = launches.get(k, 0) + v
     for label, fn in (("analyzer", analyzer), ("waves", waves), ("service", service),
-                      ("calibration", calibration)):
+                      ("calibration", calibration), ("accelerator graphs", accelerator_graphs),
+                      ("ibench", ibench)):
         t0 = time.perf_counter()
         fn(port)
         seconds[label] = time.perf_counter() - t0

@@ -1,9 +1,11 @@
 """One front door for kernel analysis: ``from repro_torch.api import analyze``.
 
-The assembly branch of ``repro.api``.  The facade accepts raw assembly text,
-a ``.s`` file path, or a parsed
-:class:`~repro_torch.core.isa.instruction.Kernel`; the target is named by an
-architecture id or alias resolved through the central registry
+The counterpart of ``repro.api``.  The facade accepts raw assembly text, a
+``.s`` file path, a parsed :class:`~repro_torch.core.isa.instruction.Kernel`,
+or an accelerator graph (HLO text or file, a parsed
+:class:`~repro_torch.core.hlo.parser.HLOModule`, or a
+``torch.export.ExportedProgram``) through the *same* call; the target is
+named by an architecture id or alias resolved through the central registry
 (:mod:`repro_torch.core.registry`), and the result is always a serializable
 :class:`~repro_torch.core.analysis.report.AnalysisReport`::
 
@@ -11,6 +13,7 @@ architecture id or alias resolved through the central registry
 
     report = analyze("fadd d0, d0, d1", arch="tx2")     # asm text
     report = analyze("loop.s", arch="cascadelake")      # file path + alias
+    report = analyze(exported_program, arch="h100")     # torch.export graph
     report = analyze(asm, arch="tx2",                   # all other knobs
                      options=AnalyzeOptions(unroll=4, diagnose=True,
                                             measurements="auto"))
@@ -30,8 +33,8 @@ CUDA device unless the caller names another, and a call that names none
 raises when there is no card.  The report is the same on every device, bit
 for bit.
 
-Not ported yet, and raising instead of running: HLO sources (an accelerator
-target for this port replaces the TPU one, ROADMAP item 10).
+The accelerator target is ``h100`` (an engine model of the NVIDIA H100 SXM5,
+:mod:`repro_torch.core.hlo`), where ``repro.api``'s is ``tpu-v5e``.
 
 Analyses share the process-level LRU and one warm :class:`MachineModel` per
 architecture, so hot loops repeated across calls are analyzed once.  For
@@ -44,6 +47,8 @@ from __future__ import annotations
 
 import os
 from typing import Dict, Optional, Union
+
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.analysis import Analysis, AnalysisReport, analyze_kernels
@@ -79,13 +84,9 @@ _ASM_SUFFIXES = (".s", ".asm")
 # happens to collide with a local filename must not silently become a read.
 _PATH_SUFFIXES = _ASM_SUFFIXES + (".hlo", ".txt", ".dump")
 
-_HLO_NOT_PORTED = (
-    "HLO sources are not analyzed by repro_torch: ROADMAP item 10 replaces "
-    "the TPU/HLO target of repro.api with an H100 one")
-
 
 def model_for(arch: Union[str, ArchSpec]):
-    """The process-wide warm machine model for ``arch``."""
+    """The process-wide warm machine model (or GPU chip) for ``arch``."""
     spec = arch if isinstance(arch, ArchSpec) else get_arch(arch)
     model = _MODELS.get(spec.id)
     if model is None:
@@ -115,7 +116,8 @@ def _read_if_path(source):
 
 
 def _looks_like_hlo(source) -> bool:
-    if hasattr(source, "computations") or hasattr(source, "as_text"):
+    if hasattr(source, "computations") or \
+            isinstance(source, torch.export.ExportedProgram):
         return True
     return isinstance(source, str) and source.lstrip().startswith("HloModule")
 
@@ -134,14 +136,15 @@ def _coerce_kernel(source, spec: ArchSpec, name: Optional[str]) -> Kernel:
         return spec.parser(text, name=name or "kernel")
     raise TypeError(
         f"cannot analyze {type(source).__name__}: expected asm text, a "
-        f"{'/'.join(_ASM_SUFFIXES)} file path, or a parsed Kernel")
+        f"{'/'.join(_ASM_SUFFIXES)} file path, a parsed Kernel, or an HLO "
+        f"module")
 
 
 def analyze_raw(source, arch: str = "tx2", options=None,
                 name: Optional[str] = None, device=None,
                 **legacy) -> Analysis:
     """Like :func:`analyze` but returning the live assembly-pipeline
-    :class:`Analysis` (kernel/model objects attached).
+    :class:`Analysis` (kernel/model objects attached).  Asm targets only.
 
     All knobs travel in ``options=AnalyzeOptions(...)`` (legacy kwargs keep
     working with a DeprecationWarning; a bare int ``options`` is the old
@@ -179,7 +182,9 @@ def analyze_raw(source, arch: str = "tx2", options=None,
     opts = AnalyzeOptions.coerce(options, legacy, where="analyze_raw")
     spec = get_arch(opts.model or arch)
     if spec.is_hlo:
-        raise ValueError(_HLO_NOT_PORTED)
+        raise ValueError(
+            f"arch '{spec.id}' is an HLO target; use analyze() for the "
+            f"serializable report")
     opts = opts.resolved(spec.id)  # validates unroll, loads the corpus
     kernel = _coerce_kernel(source, spec, name)
     if opts.timeout_s is None and not opts.degrade:
@@ -200,10 +205,11 @@ def analyze(source, arch: str = "tx2", options=None,
             **legacy) -> AnalysisReport:
     """Analyze a kernel and return the serializable :class:`AnalysisReport`.
 
-    ``source`` may be assembly text, a ``.s``/``.asm`` file path, or a parsed
-    ``Kernel``.  An HLO module (text starting with ``HloModule``, a parsed
-    module, or a ``Compiled``, also read from a file) raises ``ValueError``:
-    see the module docstring.
+    ``source`` may be assembly text, a ``.s``/``.asm`` file path, a parsed
+    ``Kernel``, or an accelerator graph (text starting with ``HloModule``, a
+    parsed ``HLOModule``, or a ``torch.export.ExportedProgram``).  HLO
+    sources are auto-routed to the HLO pipeline (on ``h100``) even when
+    ``arch`` names an asm target's default.
 
     All other knobs travel in one ``options=AnalyzeOptions(...)`` object
     (legacy ``unroll=``/``predictors=``/``diagnose=``/``degrade=`` kwargs
@@ -211,10 +217,13 @@ def analyze(source, arch: str = "tx2", options=None,
     old positional ``unroll``); see :func:`analyze_raw`.  The report carries
     ``None``/zero for predictors that were not requested, ``findings`` only
     with ``diagnose=True``, and the schema-v5 ``measured_block`` /
-    ``measured_source`` when ``measurements`` matched.
+    ``measured_source`` when ``measurements`` matched.  HLO sources reject
+    ``predictors``, ``diagnose`` and ``measurements``: they are
+    asm-pipeline concepts.
 
     ``device`` is where the tensor passes run (``None``: the CUDA device,
-    which raises when there is none).
+    which raises when there is none); for an HLO source, the LCD sweep of
+    each while body.
     """
     device = resolve_device(device)
     if isinstance(options, int):  # legacy positional unroll
@@ -223,12 +232,34 @@ def analyze(source, arch: str = "tx2", options=None,
     opts = AnalyzeOptions.coerce(options, legacy, where="analyze")
     spec = get_arch(opts.model or arch)
     # Read path sources up front so the HLO sniff sees file *contents*, not
-    # the path string.
+    # the path string (an .hlo file must auto-route even under an asm arch).
     source, basename = _read_if_path(source)
     if basename is not None:
         name = name or basename
+    if spec.is_hlo and not _looks_like_hlo(source):
+        got = (f"text starting {source.strip()[:40]!r}"
+               if isinstance(source, str) else type(source).__name__)
+        raise ValueError(
+            f"arch '{spec.id}' expects an HLO module (text starting with "
+            f"'HloModule', a parsed HLOModule, an ExportedProgram, or a file "
+            f"path); got {got}")
     if spec.is_hlo or _looks_like_hlo(source):
-        raise ValueError(_HLO_NOT_PORTED)
+        if opts.predictors is not None:
+            raise ValueError(
+                "predictors= applies to asm targets only; HLO analyses "
+                "always report the roofline/CP/LCD set")
+        if opts.diagnose:
+            raise ValueError(
+                "diagnose= applies to asm targets only; the diagnostics "
+                "pass reads the asm pipeline's port/LCD/simulator results")
+        if opts.measurements is not None:
+            raise ValueError(
+                "measurements= applies to asm targets only; HLO analyses "
+                "have no measured-corpus join")
+        chip = model_for(spec) if spec.is_hlo else None
+        hlo_arch = spec.id if spec.is_hlo else "h100"
+        return AnalysisReport.from_hlo(source, chip=chip, arch=hlo_arch,
+                                       name=name, device=device)
     return analyze_raw(source, arch=spec.id, options=opts, name=name,
                        device=device).to_report()
 

@@ -7,11 +7,12 @@ totals, and the [TP, LCD, CP] prediction bracket — detached from the live
 (``to_dict`` / ``from_dict``) and be rendered by any registered renderer
 (``render("text" | "json" | "markdown")``, see ``repro_torch.core.analysis.render``).
 
-:meth:`AnalysisReport.from_analysis` wraps the assembly pipeline's
-``Analysis`` (``kind="asm"``, cycles per iteration).  The schema keeps the
-``kind="hlo"`` form of ``repro.core.analysis.report`` (seconds per step), so
-HLO payloads load and render; building one from an HLO module
-(``from_hlo``) waits for this port's accelerator target.
+Both front-ends produce it: :meth:`AnalysisReport.from_analysis` wraps the
+assembly pipeline's ``Analysis`` (``kind="asm"``, cycles per iteration), and
+:meth:`AnalysisReport.from_hlo` wraps the accelerator adaptation
+(``kind="hlo"``, seconds per step, on the H100 engine model) — same schema,
+same bracket keys, so a downstream tool can consume an HLO while-body and an
+asm loop identically.
 """
 
 from __future__ import annotations
@@ -411,4 +412,76 @@ class AnalysisReport:
             findings=getattr(analysis, "findings", None),
             measured_block=getattr(analysis, "measured_block", None),
             measured_source=getattr(analysis, "measured_source", ""),
+        )
+
+    @classmethod
+    def from_hlo(cls, source, chip=None, arch: str = "h100",
+                 name: Optional[str] = None, device=None) -> "AnalysisReport":
+        """Analyze an accelerator graph (HLO text, a parsed module, or a
+        ``torch.export`` program) into the same report shape: roofline bound
+        as TP, longest while-carried chain as LCD, def-use critical path as
+        CP — all in seconds per step.  Only the LCD sweep runs on ``device``
+        (``None``: the CUDA device, which raises when there is none)."""
+        from repro_torch import resolve_device
+        from repro_torch.core.hlo import (H100_SXM, hlo_critical_path,
+                                          hlo_loop_carried)
+        from repro_torch.core.hlo.costs import HLOCostModel
+        from repro_torch.core.hlo.export import as_module
+        from repro_torch.core.hlo.roofline import collective_stats
+
+        device = resolve_device(device)
+        chip = chip or H100_SXM
+        module = as_module(source)
+        if not module.computations or \
+                module.entry_name not in module.computations:
+            raise ValueError(
+                f"not a valid HLO module: no entry computation parsed "
+                f"(module name {module.name!r}) — is the dump truncated?")
+
+        cost = HLOCostModel(module, chip)
+        flops = cost.computation_flops(module.entry_name)
+        hbm_bytes = sum(cost.op_bytes(op, module.entry)
+                        for op in module.entry.ops)
+        stats = collective_stats(module, chip)
+        terms = chip.port_pressure(float(flops), float(hbm_bytes),
+                                   stats.total_bytes)
+        cp = hlo_critical_path(module, chip)
+        lcd = hlo_loop_carried(module, chip, device=device)
+
+        longest = lcd.longest
+        lcd_ops = set(longest.ops) if longest is not None else set()
+        rows = tuple(
+            InstructionRow(
+                index=i, line_number=-1, asm=node.op_name,
+                mnemonic=node.opcode, latency=node.seconds, port_pressure={},
+                on_critical_path=True, on_lcd=node.op_name in lcd_ops,
+            ) for i, node in enumerate(cp.path))
+        chains = tuple(
+            LCDChainRow(length=c.total_seconds, members=tuple(c.ops),
+                        carried_by=c.tuple_index)
+            for c in lcd.chains)
+        bottleneck = max(terms, key=lambda k: terms[k]) if terms else ""
+        return cls(
+            kind="hlo",
+            kernel_name=name or module.name,
+            arch=arch,
+            isa="hlo",
+            unroll=1,
+            frequency_ghz=0.0,
+            unit="s",
+            ports=tuple(terms),
+            rows=rows,
+            port_pressure=dict(terms),
+            bottleneck_port=bottleneck,
+            tp_block=terms.get(bottleneck, 0.0),
+            cp_block=cp.seconds,
+            lcd_block=longest.total_seconds if longest is not None else 0.0,
+            lcd_chains=chains,
+            # Roofline terms are engine-pinned: no assignment freedom.
+            tp_balanced_block=terms.get(bottleneck, 0.0),
+            balanced_port_load=dict(terms),
+            balanced_bottleneck=bottleneck,
+            # The OoO simulator is an asm-pipeline concept; HLO reports
+            # complete the legacy stage set and carry no point prediction.
+            stages_completed=_LEGACY_FULL_STAGES,
         )

@@ -1,11 +1,24 @@
-"""Kernel measurement (``repro.core.bench``): the runner that measures a
-kernel through an injected executor or recalls it from the recorded corpus.
+"""Measurement (``repro.core.bench``): ``ibench``'s latency/throughput
+microbenchmarks on torch ops, which populate machine-DB entries, and the
+runner that measures a kernel through an injected executor or recalls it
+from the recorded corpus."""
 
-``ibench`` (instruction latency/throughput microbenchmarks, which populate
-machine-DB entries) is not ported yet: ROADMAP item 11 rebuilds it on torch
-ops.
-"""
-
+from repro_torch.core.bench.ibench import (
+    BenchmarkResult,
+    PopulatedEntry,
+    dry_run_result,
+    measure_latency,
+    measure_throughput,
+    populate_entry,
+)
 from repro_torch.core.bench.runner import KernelMeasurementRunner
 
-__all__ = ["KernelMeasurementRunner"]
+__all__ = [
+    "BenchmarkResult",
+    "PopulatedEntry",
+    "KernelMeasurementRunner",
+    "dry_run_result",
+    "measure_latency",
+    "measure_throughput",
+    "populate_entry",
+]

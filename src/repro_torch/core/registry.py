@@ -12,8 +12,9 @@ Lake model.  Out-of-tree machines can be added at runtime with
 :func:`register_arch`.
 
 The five assembly targets of ``repro.core.registry`` are registered here.
-Its ``tpu-v5e`` HLO entry is not: an accelerator target for this port (an
-H100 engine model) replaces it in a later slice.
+Its ``tpu-v5e`` HLO entry is not: the port's accelerator target is ``h100``
+(an engine model of the NVIDIA H100 SXM5, ``repro_torch.core.hlo``), which
+takes HLO text and ``torch.export`` programs.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from repro_torch.core.machine import (cascade_lake, neoverse_n1, thunderx2, zen,
                                       zen2)
 from repro_torch.core.validation import GS_CLX_ASM, GS_TX2_ASM, GS_ZEN_ASM
 
-#: ISA id used by HLO-module entries (the TPU adaptation of the paper).
+#: ISA id used by HLO-module entries (the accelerator adaptation of the
+#: paper).
 HLO_ISA = "hlo"
 
 
@@ -37,7 +39,7 @@ class ArchSpec:
 
     id: str
     isa: str  # "x86" | "aarch64" | "hlo"
-    model_factory: Callable[[], object]  # MachineModel (asm) or TPUChip (hlo)
+    model_factory: Callable[[], object]  # MachineModel (asm) or GPUChip (hlo)
     frequency_ghz: float
     parser: Optional[Callable] = None  # (text, name=...) -> Kernel
     aliases: Tuple[str, ...] = ()
@@ -138,4 +140,16 @@ register_arch(ArchSpec(
     id="n1", isa="aarch64", model_factory=neoverse_n1, frequency_ghz=2.5,
     parser=parse_aarch64, aliases=("neoverse-n1", "graviton2"),
     description="Arm Neoverse N1", sample_asm=GS_TX2_ASM,
+))
+
+
+def _h100():
+    from repro_torch.core.hlo import H100_SXM
+    return H100_SXM
+
+
+register_arch(ArchSpec(
+    id="h100", isa=HLO_ISA, model_factory=_h100, frequency_ghz=0.0,
+    aliases=("h100-sxm", "hopper", "sm90"),
+    description="NVIDIA H100 SXM5 80GB",
 ))

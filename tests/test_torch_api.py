@@ -2,13 +2,15 @@
 ``to_dict()`` must be equal, float64 for float64, over the five machine
 models × unroll × predictor subsets × diagnose, on the randomized kernels of
 tests/test_sim.py, with measured corpora and on the degradation ladder; the
-paper's Table I and the simulator's pins hold on the port; what is not
-ported yet raises."""
+paper's Table I and the simulator's pins hold on the port; HLO sources and
+``torch.export`` programs route to the h100 target as the reference's route
+to tpu-v5e."""
 
 import json
 import warnings
 
 import pytest
+import torch
 
 import repro.api as ref_api
 import repro.core.analysis as ref_analysis
@@ -20,6 +22,7 @@ import repro_torch.core.analysis.batch as port_batch
 import repro_torch.core.analysis.sweep as port_sweep
 from repro_torch.core.registry import get_arch
 from repro_torch.core.validation import TABLE1
+from test_api import WHILE_HLO
 from test_torch_analysis import random_kernel_text
 
 ASM_ARCHS = ("tx2", "csx", "zen", "zen2", "n1")
@@ -192,16 +195,63 @@ def test_timeout_raises_not_implemented():
         assert raw.to_report().to_dict() == ref.to_dict()
 
 
-def test_hlo_sources_raise_value_error(tmp_path):
-    hlo = "HloModule m\n\nENTRY main {\n  ROOT p = f32[] parameter(0)\n}\n"
-    with pytest.raises(ValueError, match="item 10"):
-        port_api.analyze(hlo, arch="tx2", device="cpu")
-    path = tmp_path / "m.hlo"
-    path.write_text(hlo)
-    with pytest.raises(ValueError, match="item 10"):
-        port_api.analyze(str(path), arch="tx2", device="cpu")
-    with pytest.raises(ValueError, match="unknown arch"):
-        port_api.analyze(hlo, arch="tpu-v5e", device="cpu")
+def test_hlo_sources_route_to_h100(tmp_path):
+    """HLO text, an .hlo path, a parsed module and an ExportedProgram are
+    analyzed on the h100 target, auto-routed there under an asm arch, as
+    repro.api routes them to tpu-v5e."""
+    from test_torch_hlo import TorchFori
+    from repro_torch.core.hlo import lower_exported, parse_hlo
+
+    on_h100 = port_api.analyze(WHILE_HLO, arch="h100", device="cpu")
+    assert (on_h100.kind, on_h100.arch, on_h100.ports) == ("hlo", "h100", ("TC", "HBM", "NVLink"))
+    assert on_h100.lcd_block > 0 and on_h100.cp_block >= on_h100.lcd_block - 1e-12
+    for arch in ("tx2", "hopper", "sm90", "H100-SXM"):
+        for source in (WHILE_HLO, parse_hlo(WHILE_HLO)):
+            assert port_api.analyze(source, arch=arch, device="cpu").to_dict() == \
+                on_h100.to_dict()
+    path = tmp_path / "module.hlo"
+    path.write_text(WHILE_HLO)
+    from_path = port_api.analyze(str(path), device="cpu")
+    assert from_path.kernel_name == "module.hlo"
+    assert from_path.prediction_bracket() == on_h100.prediction_bracket()
+    ep = torch.export.export(TorchFori(), (torch.ones(8, 64), torch.ones(64, 64)))
+    report = port_api.analyze(ep, arch="tx2", device="cpu", name="fori")
+    assert (report.kind, report.arch, report.kernel_name) == ("hlo", "h100", "fori")
+    assert report.to_dict() == port_api.analyze(lower_exported(ep), arch="h100",
+                                                device="cpu", name="fori").to_dict()
+    with pytest.raises(ValueError, match="unknown arch 'tpu-v5e'"):
+        port_api.analyze(WHILE_HLO, arch="tpu-v5e", device="cpu")
+
+
+def test_hlo_branch_rejects_as_the_reference_does():
+    from repro.core.isa import parse_aarch64
+
+    for opts in (dict(predictors=("tp",)), dict(diagnose=True),
+                 dict(measurements="auto")):
+        with pytest.raises(ValueError) as ref:
+            ref_api.analyze(WHILE_HLO, arch="tpu-v5e", options=ref_api.AnalyzeOptions(**opts))
+        with pytest.raises(ValueError) as port:
+            port_api.analyze(WHILE_HLO, arch="h100", device="cpu",
+                             options=port_api.AnalyzeOptions(**opts))
+        assert str(port.value) == str(ref.value)
+    for source in ("fadd d0, d0, d1", parse_aarch64("fadd d0, d0, d1")):
+        with pytest.raises(ValueError, match="arch 'h100' expects an HLO module"):
+            port_api.analyze(source, arch="hopper", device="cpu")
+    with pytest.raises(ValueError, match="not a valid HLO module"):
+        port_api.analyze("HloModule truncated\n", arch="tx2", device="cpu")
+    with pytest.raises(ValueError) as ref:
+        ref_api.analyze_raw(WHILE_HLO, arch="tpu-v5e")
+    with pytest.raises(ValueError) as port:
+        port_api.analyze_raw(WHILE_HLO, arch="h100", device="cpu")
+    assert str(port.value) == str(ref.value).replace("tpu-v5e", "h100")
+
+
+def test_hlo_report_json_roundtrip():
+    report = port_api.analyze(WHILE_HLO, arch="hopper", device="cpu")
+    payload = json.dumps(report.to_dict(), sort_keys=True)
+    restored = port_api.AnalysisReport.from_dict(json.loads(payload))
+    assert json.dumps(restored.to_dict(), sort_keys=True) == payload
+    assert restored.render("text") == report.render("text")
 
 
 def test_cache_separates_devices_and_serves_views():

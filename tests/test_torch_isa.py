@@ -154,7 +154,8 @@ def test_resolved_costs_equal_on_gauss_seidel(arch):
 
 def test_registry_ids_and_aliases():
     assert port_registry.asm_arch_ids() == ref_registry.asm_arch_ids()
-    assert port_registry.list_arch_ids() == ref_registry.asm_arch_ids()
+    assert port_registry.list_arch_ids() == sorted(ref_registry.asm_arch_ids() + ["h100"])
+    assert port_registry.list_arch_ids("hlo") == ["h100"]
     for arch in ref_registry.asm_arch_ids():
         ref = ref_registry.get_arch(arch)
         port = port_registry.get_arch(arch)
@@ -168,6 +169,11 @@ def test_registry_ids_and_aliases():
         ref_registry.get_arch(hlo_name)  # the reference's HLO target ...
         with pytest.raises(ValueError, match="unknown arch"):
             port_registry.get_arch(hlo_name)  # ... is not the port's
+    for hlo_name in ("h100", "h100-sxm", "Hopper", "sm90"):
+        spec = port_registry.get_arch(hlo_name)  # the port's is the H100
+        assert (spec.id, spec.is_hlo, spec.parser, spec.frequency_ghz) == \
+            ("h100", True, None, 0.0)
+        assert spec.model_factory().name == "h100_sxm"
 
 
 def test_corpora_equal():

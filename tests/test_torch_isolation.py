@@ -11,6 +11,8 @@ import sys
 import pytest
 import torch
 
+from test_api import WHILE_HLO
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
@@ -47,7 +49,12 @@ def test_module_list_covers_the_slice():
                  "repro_torch.core.analysis.batch", "repro_torch.core.machine.lint",
                  "repro_torch.core.calibration.calibrate", "repro_torch.core.bench",
                  "repro_torch.core.bench.runner", "repro_torch.serving.resilience",
-                 "repro_torch.serving.faults", "repro_torch.serving.analysis"):
+                 "repro_torch.serving.faults", "repro_torch.serving.analysis",
+                 "repro_torch.core.hlo", "repro_torch.core.hlo.parser",
+                 "repro_torch.core.hlo.machine", "repro_torch.core.hlo.costs",
+                 "repro_torch.core.hlo.critical_path", "repro_torch.core.hlo.lcd",
+                 "repro_torch.core.hlo.hotspots", "repro_torch.core.hlo.roofline",
+                 "repro_torch.core.hlo.export", "repro_torch.core.bench.ibench"):
         assert name in MODULES
 
 
@@ -61,6 +68,18 @@ def test_port_imports_neither_jax_nor_repro():
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BAD []" in proc.stdout
+
+
+def test_accelerator_graph_modules_import_neither_jax_nor_repro():
+    code = ("import sys\n"
+            "import repro_torch.core.hlo, repro_torch.core.hlo.hotspots\n"
+            "import repro_torch.core.bench.ibench\n"
+            "from repro_torch.core.hlo import H100_SXM\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+            "print('BAD', bad, H100_SXM.name)\n")
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD [] h100_sxm" in proc.stdout
 
 
 def test_entry_points_raise_without_a_card():
@@ -89,10 +108,15 @@ def test_analyze_raises_without_a_card():
     # card unless told otherwise: called without one, each raises.
     _needs_no_card()
     code = ("import inspect\n"
+            "import torch\n"
+            f"HLO = {WHILE_HLO!r}\n"
             "import repro_torch.api as api\n"
             "import repro_torch.core.analysis as analysis\n"
             "import repro_torch.core.analysis.sweep as sweep\n"
+            "import repro_torch.core.bench.ibench as ibench\n"
+            "import repro_torch.core.hlo as hlo\n"
             "import repro_torch.core.sim as sim\n"
+            "from repro_torch.core.analysis.report import AnalysisReport\n"
             "from repro_torch.core.analysis.dag import build_dag\n"
             "from repro_torch.core.registry import get_arch\n"
             "spec = get_arch('tx2')\n"
@@ -114,8 +138,12 @@ def test_analyze_raises_without_a_card():
             "        kernel, model),\n"
             "    'batched_longest_paths': lambda: sweep.batched_longest_paths(\n"
             "        ptr, idx, dag.latency_vector(), [[0]]),\n"
+            "    'hlo_loop_carried': lambda: hlo.hlo_loop_carried(HLO),\n"
+            "    'measure_latency': lambda: ibench.measure_latency(torch.exp),\n"
+            "    'measure_throughput': lambda: ibench.measure_throughput(torch.exp),\n"
+            "    'populate_entry': lambda: ibench.populate_entry('exp', torch.exp),\n"
             "}\n"
-            "exported = {n for mod in (api, analysis, sim, sweep)\n"
+            "exported = {n for mod in (api, analysis, sim, sweep, hlo, ibench)\n"
             "            for n in getattr(mod, '__all__', dir(mod))\n"
             "            if callable(getattr(mod, n, None)) and not n.startswith('_')\n"
             "            and not inspect.isclass(getattr(mod, n))\n"
@@ -129,6 +157,13 @@ def test_analyze_raises_without_a_card():
             "        assert 'no CUDA device' in str(exc), (name, exc)\n"
             "    else:\n"
             "        raise SystemExit(f'{name} ran on the CPU without being asked')\n"
+            "for fn in (lambda: api.analyze(HLO), lambda: AnalysisReport.from_hlo(HLO)):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as exc:\n"
+            "        assert 'no CUDA device' in str(exc), exc\n"
+            "    else:\n"
+            "        raise SystemExit('an HLO analysis ran on the CPU without being asked')\n"
             "print(api.analyze(spec.sample_asm, arch='tx2', device='cpu').tp_per_it)\n"
             "print('RAISED')\n")
     proc = _python(code)

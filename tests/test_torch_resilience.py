@@ -226,10 +226,17 @@ SCENARIOS = [full_rung_matches_plain_path,
              cache_eviction_fault_forces_reanalysis, seeded_chaos_trace]
 
 
-# The one envelope text that differs (ROADMAP §C): an unknown arch's error
-# lists the registry's known ids, and the port's registry has no HLO target
-# yet (item 10), so the reference's list names one more.
-REF_ONLY_ARCH = "tpu-v5e (tpu/v5e/tpu_v5e), "
+# The one envelope text that differs (ROADMAP §C), by design: an unknown
+# arch's error lists the registry's known ids, and the port's accelerator
+# target is h100 where the reference's is tpu-v5e.
+REF_TARGET = "tpu-v5e (tpu/v5e/tpu_v5e)"
+PORT_TARGET = "h100 (h100-sxm/hopper/sm90)"
+
+
+def known_ids(error):
+    """An unknown-arch error split into its text and its list of known ids."""
+    text, known = error.split("; known: ")
+    return text, known.split(", ")
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
@@ -237,10 +244,16 @@ def test_chaos_scenario_equals_reference(scenario):
     port_analysis.clear_analysis_cache()
     ref_analysis.clear_analysis_cache()
     port, ref = scenario(PORT), scenario(REF)
-    for envelope in ref["envelopes"]:
-        if envelope["error_code"] == "UNKNOWN_ARCH":
-            assert REF_ONLY_ARCH in envelope["error"]
-            envelope["error"] = envelope["error"].replace(REF_ONLY_ARCH, "")
+    assert len(port["envelopes"]) == len(ref["envelopes"])
+    for port_env, ref_env in zip(port["envelopes"], ref["envelopes"]):
+        if ref_env["error_code"] == "UNKNOWN_ARCH":
+            port_text, port_known = known_ids(port_env["error"])
+            ref_text, ref_known = known_ids(ref_env["error"])
+            assert port_text == ref_text
+            assert ref_known.count(REF_TARGET) == 1 and PORT_TARGET not in ref_known
+            assert sorted(port_known) == sorted(
+                PORT_TARGET if entry == REF_TARGET else entry for entry in ref_known)
+            port_env["error"] = ref_env["error"] = port_text
     assert port == ref
     assert port["envelopes"]
 
