@@ -71,7 +71,20 @@ the repository is not beside it). It
 10. runs ibench (``populate_entry``: serial-chain latency and stacked
    parallel-chain throughput) on the card for its default ops, and its dry
    run, which must print the reference's table;
-11. prints each phase's seconds, a JSON line of per-kernel numbers and,
+11. trains (``repro_torch.train``): (a) the autograd Functions of K1 and K2
+   (``ops.FusedRMSNorm``, ``ops.FlashAttention``: the kernel forward, a
+   hand-written backward in PyTorch) against autograd through the plain
+   formulas (``rmsnorm_rows_plain``, ``layers.naive_attention``) in f32 and
+   bf16 at the slice's shapes and beside them, each backward timed; (b) one
+   step's loss and gradients of tinyllama-1.1b at full width, cut to 4
+   layers, in f32 with TF32 off, on the kernel path against the ``chunked``
+   path, every parameter with a gradient; (c) ``train_loop`` in bf16 at full
+   width and depth, 8 steps of 4 x 512 tokens on the Markov pipeline, with
+   the loss falling and exact kernel launches per step, then step ms,
+   tokens/s, the backward's ms, device busy and idle share, peak memory and
+   the step's bound; last, a checkpoint saved, restored into a fresh state,
+   and one more step from each, equal;
+12. prints each phase's seconds, a JSON line of per-kernel numbers and,
    last, the JSON result line.
 
 Any failed check raises, so the script exits non-zero before the last line.
@@ -87,6 +100,7 @@ import math
 import os
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -218,15 +232,18 @@ def clocks():
     return text.splitlines()[0] if text else f"nvidia-smi exit {out.returncode}"
 
 
-def device_time(fn, calls):
+def device_time(fn, calls, inference=True):
     """Device time per call of ``fn`` from a torch.profiler trace: the summed
     duration of the CUDA kernels it ran, and the top kernels by time. None
-    when the trace holds no device activity."""
+    when the trace holds no device activity. ``fn`` runs in inference mode
+    unless ``inference`` is False."""
+    import contextlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
-                                                     ProfilerActivity.CUDA]) as prof:
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -1438,6 +1455,418 @@ def ibench(port):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_CHECK_LAYERS = "tinyllama-1.1b", 8, 4
+# (c)'s schedule: a 2-step warmup to 1e-3, then a cosine to 0 at the last
+# step (``total_steps`` = the steps run, as ``repro.launch.train`` sets it).
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+# Gradients of the Functions against autograd through the plain formulas,
+# as the largest difference over the largest reference element: in f32 both
+# sides differ only in summation order (about 1e-6 on the CPU), held to
+# 1e-4; in bf16 autograd through the plain formulas rounds the attention
+# probabilities and their gradient to bf16 (steps of 2^-8) where the
+# Functions keep f32, held to 2e-2.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (b): the kernel path's gradients against the chunked path's, each tensor
+# to 1e-4 of its largest element, in f32 with TF32 off. The paths differ in
+# the attention's summation order (the kernel's tiles against 64-key
+# chunks, a hand-written backward against autograd through the online
+# softmax) and in the norm's backward formula; on the CPU at the tiny
+# width the two agree to about 1e-6 of the largest element.
+PATH_GRAD_TOL = 1e-4
+
+
+def compare_grads(name, shape, got, want, tol):
+    """Gradients held as the largest difference over the largest element of
+    ``want``; every element finite."""
+    rows = []
+    for part, g, w in zip(("x", "w") if len(got) == 2 else ("q", "k", "v"), got, want):
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        row = {"shape": shape, "dtype": str(w.dtype).removeprefix("torch."), "grad": part,
+               "max_abs_err": err, "max_abs_ref": scale, "rel": err / max(scale, 1e-30),
+               "tol": tol}
+        require(bool(torch.isfinite(g.float()).all()) and err <= tol * scale,
+                f"{name} backward {row} disagrees with autograd through the plain formula")
+        rows.append(row)
+    return rows
+
+
+def train_functions(port):
+    """Phase 11(a): the Functions of K1 and K2 on the card, forward (the
+    kernel, against the plain version at the kernels' tolerances) and
+    backward (against autograd through the plain formula), f32 and bf16;
+    each backward timed at the slice's shape."""
+    ops, rms, fa, layers, F = port["ops"], port["rms"], port["fa"], port["layers"], \
+        torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    checks, grads = [], []
+    # K1 at the slice's rows and width, and a width off the 16-byte vectors.
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, d in ((BATCH * PROMPT_LEN, 2048), (7, 2050)):
+            x = rnd(rows, d, dtype=dtype).requires_grad_()
+            w = (1 + rnd(d, dtype=torch.float32, scale=0.1)).to(dtype).requires_grad_()
+            g = rnd(rows, d, dtype=dtype)
+            out = ops.fused_rmsnorm(x, w)
+            require(type(out.grad_fn).__name__ == "FusedRMSNormBackward",
+                    "fused_rmsnorm goes through its Function when an input requires grad")
+            checks.append(compare("FusedRMSNorm", [rows, d], out.detach(),
+                                  rms.rmsnorm_rows_plain(x.detach(), w.detach())))
+            got = torch.autograd.grad(out, (x, w), g)
+            x2, w2 = x.detach().requires_grad_(), w.detach().requires_grad_()
+            want = torch.autograd.grad(rms.rmsnorm_rows_plain(x2, w2), (x2, w2), g)
+            grads += compare_grads("FusedRMSNorm", [rows, d], got, want, GRAD_TOL[dtype])
+    # K2 at the slice's shape, at D 80, with a window, a softcap, a ragged S
+    # and a query offset. (b, s, t, h, kv, d, window, q_offset, softcap)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, t, h, kv, d, win, qoff, cap in (
+                (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 4, 64, 0, 0, 0.0),
+                (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 32, 80, 0, 0, 0.0),
+                (2, 300, 300, 8, 2, 64, 64, 0, 0.0), (2, 100, 100, 32, 4, 64, 0, 0, 30.0),
+                (3, 77, 77, 32, 4, 64, 0, 0, 0.0), (2, 40, 130, 8, 8, 80, 33, 90, 30.0)):
+            q = rnd(b, s, h, d, dtype=dtype).requires_grad_()
+            k = rnd(b, t, kv, d, dtype=dtype).requires_grad_()
+            v = rnd(b, t, kv, d, dtype=dtype).requires_grad_()
+            g = rnd(b, s, h, d, dtype=dtype)
+            kw = dict(causal=True, window=win, q_offset=qoff, softcap=cap)
+            shape = [b, s, t, h, kv, d, win, qoff, cap]
+            out = ops.flash_attention(q, k, v, **kw)
+            require(type(out.grad_fn).__name__ == "FlashAttentionBackward",
+                    "flash_attention goes through its Function when an input requires grad")
+            checks.append(compare("FlashAttention", shape, out.detach(),
+                                  fa.flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                                           **kw)))
+            got = torch.autograd.grad(out, (q, k, v), g)
+            leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+            want = torch.autograd.grad(layers.naive_attention(*leaves, **kw), leaves, g)
+            grads += compare_grads("FlashAttention", shape, got, want, GRAD_TOL[dtype])
+            del q, k, v, g, out, got, leaves, want
+
+    # The backward passes at the slice's shapes in bf16: the Function's, the
+    # autograd backward through the plain formula, and the library's.
+    timings = {}
+    x = rnd(BATCH * PROMPT_LEN, 2048, dtype=torch.bfloat16).requires_grad_()
+    w = torch.ones(2048, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    g = rnd(BATCH * PROMPT_LEN, 2048, dtype=torch.bfloat16)
+    outs = (ops.fused_rmsnorm(x, w), rms.rmsnorm_rows_plain(x, w),
+            F.rms_norm(x, (2048,), w, 1e-5))
+    t = [time_ms(lambda o=o: torch.autograd.grad(o, (x, w), g, retain_graph=True))
+         for o in outs]
+    timings["FusedRMSNorm.backward"] = {
+        "shape": [BATCH * PROMPT_LEN, 2048], "ms": t[0][0], "plain_ms": t[1][0],
+        "library_ms": t[2][0], "bound_by": "bytes",
+        "bound_ms": nbytes(x, w, g, x, w) / PEAK_BYTES * 1e3}
+    b, s, h, kv, d = BATCH, PROMPT_LEN, 32, 4, 64
+    q = rnd(b, s, h, d, dtype=torch.bfloat16).requires_grad_()
+    k = rnd(b, s, kv, d, dtype=torch.bfloat16).requires_grad_()
+    v = rnd(b, s, kv, d, dtype=torch.bfloat16).requires_grad_()
+    g = rnd(b, s, h, d, dtype=torch.bfloat16)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    outs = (ops.flash_attention(q, k, v), layers.naive_attention(q, k, v),
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True).transpose(1, 2))
+    t = [time_ms(lambda o=o: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), reps=10)
+         for o in outs]
+    pairs = s * (s + 1) // 2
+    flops = 10 * b * h * d * pairs  # the scores again, dV, dP, dQ, dK
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes(q, k, v, q, q, q, k, v) / PEAK_BYTES * 1e3  # q, k, v, O, dO; dq, dk, dv
+    timings["FlashAttention.backward"] = {
+        "shape": [b, s, h, kv, d], "ms": t[0][0], "plain_ms": t[1][0], "library_ms": t[2][0],
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    del outs, x, w, q, k, v, g, qt, kt, vt
+    torch.cuda.empty_cache()
+    log(json.dumps({"train_functions": {"checks": checks, "grads": grads,
+                                        "backward_timings": timings}}))
+    return timings
+
+
+def path_gradients(port):
+    """Phase 11(b): one step's loss and gradients of the model at full width,
+    cut to TRAIN_CHECK_LAYERS layers, in f32 with TF32 off, from one seed-0
+    state, on the kernel path and on the chunked path."""
+    cfg_mod, ops, train_state, step_mod, data = port["configs"], port["ops"], \
+        port["train_state"], port["train_step"], port["data"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = cfg_mod.get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_CHECK_LAYERS, dtype="float32")
+    log(json.dumps({"train_check": f"{TRAIN_ARCH} at full width (d {cfg.d_model}, "
+                                   f"{cfg.n_heads} heads over {cfg.n_kv_heads}), depth cut "
+                                   f"from {full.n_layers} to {cfg.n_layers} layers, f32"}))
+    state = train_state.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.make_batch(cfg, BATCH, PROMPT_LEN, SEED, 0).items()}
+    results = {}
+    for impl in ("flash", "chunked"):
+        run = cfg_mod.RunConfig(attention_impl=impl, attention_chunk=64, remat="none",
+                                zero=False)
+        ops.reset_launches()
+        total, metrics, grads = step_mod._grads(state.params, cfg, run, batch)
+        torch.cuda.synchronize()
+        results[impl] = (float(total), dict(ops.LAUNCHES), grads)
+    (loss_k, launches, grads_k), (loss_c, launches_c, grads_c) = results["flash"], \
+        results["chunked"]
+    L = cfg.n_layers
+    require(launches["fused_rmsnorm"] == 2 * L + 1 and launches["flash_attention"] == L
+            and sum(launches_c.values()) == 0,
+            f"the kernel path launches K1 and K2 per norm and attention layer: {launches}")
+    rel = abs(loss_k - loss_c) / abs(loss_c)
+    require(math.isfinite(loss_k) and rel <= 1e-5, f"losses {loss_k} vs {loss_c}")
+    worst = {}
+    for name, gk in grads_k.items():
+        gc = grads_c[name]
+        scale = float(gc.abs().max())
+        err = float((gk - gc).abs().max())
+        require(bool(torch.isfinite(gk).all()) and float(gk.abs().max()) > 0,
+                f"{name} has no gradient on the kernel path")
+        require(err <= PATH_GRAD_TOL * scale, f"{name}: kernel path gradient off by {err} "
+                                              f"against the chunked path's {scale}")
+        worst[name] = err / scale
+    top = dict(sorted(worst.items(), key=lambda kv: -kv[1])[:6])
+    summary = {"layers": L, "loss_flash": loss_k, "loss_chunked": loss_c, "loss_rel": rel,
+               "params_with_grad": len(grads_k), "launches": launches,
+               "grad_rel_worst": top, "tol": PATH_GRAD_TOL}
+    log(json.dumps({"train_paths": summary}))
+    del state, results, grads_k, grads_c
+    torch.cuda.empty_cache()
+    return summary
+
+
+def step_bound(cfg, n_params, tokens, b, s):
+    """The least time of one train step, counted from the config: the
+    matmul FLOPs (6 per parameter and token, the embedding lookup aside,
+    plus causal attention forward and backward) at the bf16 tensor-core
+    peak, then AdamW's bytes (22 per parameter: bf16 p and g read, f32 m and
+    v read, p, m and v written) at the memory rate; the update needs every
+    gradient, so the two add."""
+    pairs = s * (s + 1) // 2
+    attn = 12 * cfg.n_layers * b * cfg.n_heads * pairs * cfg.d_head
+    flops = 6 * (n_params - cfg.padded_vocab * cfg.d_model) * tokens + attn
+    nbytes_opt = 22 * n_params
+    return {"flops": flops, "flops_ms": flops / PEAK_BF16_FLOPS * 1e3,
+            "adamw_bytes": nbytes_opt, "adamw_ms": nbytes_opt / PEAK_BYTES * 1e3,
+            "bound_ms": flops / PEAK_BF16_FLOPS * 1e3 + nbytes_opt / PEAK_BYTES * 1e3}
+
+
+def train_run(port):
+    """Phase 11(c): ``train_loop`` at full width and depth in bf16, then the
+    step's times and a checkpoint round trip. Returns the summary and the
+    kernel launches of the train_loop run."""
+    cfg_mod, ops, train_state, step_mod, loop_mod, data, ckpt = (
+        port["configs"], port["ops"], port["train_state"], port["train_step"],
+        port["train_loop"], port["data"], port["ckpt"])
+    cfg = cfg_mod.get_config(TRAIN_ARCH)
+    require((cfg.n_layers, cfg.d_model, cfg.dtype) == (22, 2048, "bfloat16"),
+            f"{TRAIN_ARCH} at full width and depth in bf16")
+    run = cfg_mod.RunConfig(attention_impl="flash", attention_chunk=64, remat="full",
+                            zero=False, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    # A batch the run never sees (the pipeline's step 1000), for the loss of
+    # the seed-0 initial weights (those train_loop starts from) and of the
+    # trained ones: free of the batch-to-batch spread of the step losses.
+    models, data_mod = port["models"], port["data"]
+    held_out = {k: torch.from_numpy(v).cuda()
+                for k, v in data_mod.make_batch(cfg, BATCH, PROMPT_LEN, SEED, 1000).items()}
+    with torch.no_grad():
+        initial = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                     device="cuda")
+        held_before = float(step_mod._loss_fn(initial, cfg, run, held_out)[0])
+    del initial
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, logged = loop_mod.train_loop(cfg, run, steps=TRAIN_STEPS, global_batch=BATCH,
+                                        seq_len=PROMPT_LEN, seed=SEED, log_every=1,
+                                        device="cuda")
+    loop_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    L = cfg.n_layers
+    # Per step: K1 at 2L + 1 norms and K2 at L attention layers in the
+    # forward; under remat each block's forward runs again in backward (the
+    # final norm is outside the blocks): 2L more K1, L more K2.
+    per_step = {"fused_rmsnorm": 4 * L + 1, "flash_attention": 2 * L, "flash_decode": 0,
+                "ssd_chunk_dual": 0}
+    expect = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    log(json.dumps({"train_launches": launches, "expected": expect, "per_step": per_step}))
+    require(launches == expect, "kernel launches of train_loop match the path's structure")
+    losses = [m["loss"] for m in logged]
+    require(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+            f"a finite loss every step: {losses}")
+    require(losses[-1] < losses[0], f"the loss falls over {TRAIN_STEPS} steps: {losses}")
+    held_after = float(step_mod.eval_step(state, held_out, cfg, run)["loss"])
+    require(held_after < held_before, f"the held-out loss falls: {held_before} -> {held_after}")
+
+    # Times of further steps on the trained state: the whole step (CUDA
+    # events), its forward and backward apart, and one step's device busy
+    # time (profiler). These steps and the checkpoint's run on the schedule
+    # of a longer run, so that their rate is not 0.
+    step_fn = step_mod.make_train_step(cfg, dataclasses.replace(run, total_steps=100))
+    params = list(state.params.parameters())
+
+    def batch_at(step):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in data.make_batch(cfg, BATCH, PROMPT_LEN, SEED, step).items()}
+
+    step_ms, fwd_ms, bwd_ms = [], [], []
+    for i in range(3):
+        batch = batch_at(TRAIN_STEPS + i)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        total, _ = step_mod._loss_fn(state.params, cfg, run, batch)
+        ev[1].record()
+        torch.autograd.grad(total, params)
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd_ms.append(ev[0].elapsed_time(ev[1]))
+        bwd_ms.append(ev[1].elapsed_time(ev[2]))
+        del total
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    batch = batch_at(TRAIN_STEPS + 3)
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], batch)
+
+    busy, top = device_time(one_step, 1, inference=False)
+    state = holder["state"]
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params)
+    tokens = BATCH * PROMPT_LEN
+    step = statistics.median(step_ms)
+    summary = {"model": TRAIN_ARCH, "layers": L, "d_model": cfg.d_model, "params": n_params,
+               "dtype": cfg.dtype, "batch": BATCH, "seq_len": PROMPT_LEN, "remat": run.remat,
+               "losses": losses, "held_out_loss": [held_before, held_after],
+               "train_loop_s": loop_s, "step_ms": step_ms,
+               "tokens_per_s": tokens / step * 1e3, "forward_ms": fwd_ms,
+               "backward_ms": bwd_ms, "step_device_busy_ms": busy,
+               "step_device_idle_share": None if busy is None else 1 - busy / step,
+               "step_top_kernels_ms": top, "max_memory_allocated": peak,
+               "bound": step_bound(cfg, n_params, tokens, BATCH, PROMPT_LEN)}
+    log(json.dumps({"train": summary}))
+
+    # A checkpoint of the state, restored into a fresh one (another seed):
+    # bit for bit; then one more step from each on the same batch. The
+    # embedding's gradient sums by atomics in no fixed order, so the two
+    # steps agree to bf16 rounding, not bitwise: the loss to 1e-3, and each
+    # parameter within one bf16 step of its value or 2 lr (an update that
+    # rounds the other way).
+    directory = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        writer = ckpt.AsyncCheckpointer(directory, keep=1)
+        writer.save(int(state.step), train_state.state_tree(state, cfg))
+        writer.wait()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh = train_state.init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED + 1), device="cuda")
+        tree, saved_step = ckpt.restore_checkpoint(ckpt.latest_checkpoint(directory),
+                                                   train_state.state_tree(fresh, cfg))
+        fresh = train_state.load_state_tree(fresh, tree, cfg)
+        del tree
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         ckpt.latest_checkpoint(directory).iterdir())
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    require(saved_step == int(state.step) == int(fresh.step)
+            and int(fresh.opt.count) == int(state.opt.count), "the restored step and count")
+    kept = dict(state.params.named_parameters())
+    for name, p in fresh.params.named_parameters():
+        require(torch.equal(p, kept[name]) and torch.equal(fresh.opt.mu[name], state.opt.mu[name])
+                and torch.equal(fresh.opt.nu[name], state.opt.nu[name]),
+                f"{name}: the restored state equals the saved one")
+    batch = batch_at(int(state.step))
+    state, m_kept = step_fn(state, batch)
+    fresh, m_restored = step_fn(fresh, batch)
+    lr = float(m_kept["lr"])
+    loss_rel = abs(float(m_kept["loss"]) - float(m_restored["loss"])) / float(m_kept["loss"])
+    require(loss_rel <= 1e-3, f"loss after restore {float(m_restored['loss'])} vs "
+                              f"{float(m_kept['loss'])}")
+    worst, off = 0.0, 0
+    kept = dict(state.params.named_parameters())
+    for name, p in fresh.params.named_parameters():
+        diff = (p.detach().float() - kept[name].detach().float()).abs()
+        limit = torch.clamp(kept[name].detach().float().abs() * 2 ** -7, min=2 * lr)
+        require(bool((diff <= limit).all()), f"{name}: the step from the restored state "
+                                             f"moved it {float(diff.max())} from the kept one")
+        worst = max(worst, float(diff.max()))
+        off += int((diff > 0).sum())
+    restore = {"step": saved_step, "save_s": save_s, "restore_s": restore_s,
+               "checkpoint_bytes": ckpt_bytes, "loss_kept": float(m_kept["loss"]),
+               "loss_restored": float(m_restored["loss"]), "loss_rel": loss_rel,
+               "params_max_abs_diff": worst, "params_elements_differing": off}
+    log(json.dumps({"train_checkpoint": restore}))
+    summary["checkpoint"] = restore
+    del state, fresh, params, kept
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def training(port):
+    """Phase 11: (a), (b) and (c). Returns (a)'s backward timings, (c)'s
+    summary and the launches of its train_loop run."""
+    timings = train_functions(port)
+    path_gradients(port)
+    summary, launches = train_run(port)
+    return timings, summary, launches
+
+
+def train_schedules(port, lrs=(3e-4, TRAIN_LR), seeds=(0, 1, 2, 3, 4, 5)):
+    """Not a phase of ``main``: the spread that (c)'s loss check sits in.
+    Prints the seed-0 initial weights' loss on the 8 batches (c) trains on,
+    and the first and last step losses of (c)'s ``train_loop`` (same
+    schedule) at each learning rate and seed. Alone: ``python3 -c "import
+    sys; sys.path[:0] = ['.']; import chip_smoke as cs; p =
+    cs.port_modules(); p['build'].build(); cs.train_schedules(p)"``."""
+    cfg_mod, models, step_mod, loop_mod, data = (port["configs"], port["models"],
+                                                 port["train_step"], port["train_loop"],
+                                                 port["data"])
+    cfg = cfg_mod.get_config(TRAIN_ARCH)
+    run = cfg_mod.RunConfig(attention_impl="flash", attention_chunk=64, remat="full",
+                            zero=False, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    with torch.no_grad():
+        initial = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                     device="cuda")
+        losses = [float(step_mod._loss_fn(initial, cfg, run, {
+            k: torch.from_numpy(v).cuda()
+            for k, v in data.make_batch(cfg, BATCH, PROMPT_LEN, SEED, i).items()})[0])
+            for i in range(TRAIN_STEPS)]
+    del initial
+    log(json.dumps({"initial_weights_batch_losses": losses}))
+    rows = []
+    for lr in lrs:
+        for seed in seeds:
+            _, logged = loop_mod.train_loop(cfg, dataclasses.replace(run, learning_rate=lr),
+                                            steps=TRAIN_STEPS, global_batch=BATCH,
+                                            seq_len=PROMPT_LEN, seed=seed,
+                                            log_every=TRAIN_STEPS, device="cuda")
+            first, last = logged[0]["loss"], logged[-1]["loss"]
+            rows.append({"lr": lr, "seed": seed, "first": first, "last": last,
+                         "falls": last < first})
+            log(json.dumps({"train_schedule": rows[-1]}))
+            torch.cuda.empty_cache()
+    return losses, rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def port_modules():
@@ -1466,6 +1895,13 @@ def port_modules():
         "hlo_export": importlib.import_module("repro_torch.core.hlo.export"),
         "hlo_costs": importlib.import_module("repro_torch.core.hlo.costs"),
         "ibench": importlib.import_module("repro_torch.core.bench.ibench"),
+        "layers": importlib.import_module("repro_torch.models.layers"),
+        "train": importlib.import_module("repro_torch.train"),
+        "train_step": importlib.import_module("repro_torch.train.step"),
+        "train_state": importlib.import_module("repro_torch.train.state"),
+        "train_loop": importlib.import_module("repro_torch.launch.train"),
+        "data": importlib.import_module("repro_torch.data"),
+        "ckpt": importlib.import_module("repro_torch.checkpoint"),
     }
 
 
@@ -1511,6 +1947,11 @@ def main() -> int:
         t0 = time.perf_counter()
         fn(port)
         seconds[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    backward_timings, _, train_launches = training(port)
+    seconds["training"] = time.perf_counter() - t0
+    for k, v in train_launches.items():
+        launches[k] += v
     log(json.dumps({"phase_seconds": seconds}))
 
     sources = {
@@ -1524,6 +1965,8 @@ def main() -> int:
         k = kernels[kname]
         t = k["timings"][0]
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "clocks")
+        backward = {"fused_rmsnorm": "FusedRMSNorm.backward",
+                    "flash_attention": "FlashAttention.backward"}.get(kname)
         rows.append({"name": kname, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
                      "launches": launches[kname],
@@ -1531,7 +1974,9 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "shape": t["shape"],
-                     "timings": [{key: r[key] for key in keys} for r in k["timings"]]})
+                     "timings": [{key: r[key] for key in keys} for r in k["timings"]],
+                     "backward": backward and {"function": backward,
+                                               **backward_timings[backward]}})
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                           "count": torch.cuda.device_count()}}))

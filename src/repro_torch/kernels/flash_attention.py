@@ -10,6 +10,10 @@ caps the scores as ``softcap * tanh(s / softcap)``, as
 (``csrc/flash_attention.cu``: bf16 on the tensor cores, f32 on the CUDA
 cores) replaces the TPU kernel
 ``repro/kernels/flash_attention.py:flash_attention_bhsd``.
+
+Its gradient (``flash_attention_backward``) is plain PyTorch in f32, run by
+``ops.FlashAttention``'s backward: the reference differentiates through its
+eager attention with ``jax.grad`` and has no backward kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +28,16 @@ DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (32, 64, 80, 96, 128)
 BLOCK_K = 64  # keys per KV tile, as in the bf16 kernel
 NEG_INF = -1e30
+# The backward recomputes the scores one block of queries at a time: a block
+# holds at most this many (batch, head, query, key) elements, so that each of
+# its f32 transients (scores, P, dP, dS) stays near 32 MB whatever S and T.
+BACKWARD_BLOCK_ELEMENTS = 1 << 23
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, or in f64 where it is f64 (so that gradcheck can run the
+    plain versions and the backward in double precision)."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def _visible(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
@@ -58,14 +72,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t, n_kv = k.shape[1], k.shape[2]
     g = h // n_kv
     scale = 1.0 / math.sqrt(d)
-    qg = q.float().reshape(b, s, n_kv, g, d)
+    qg = _wide(q).reshape(b, s, n_kv, g, d)
+    f = dict(device=q.device, dtype=qg.dtype)
     qpos = torch.arange(s, device=q.device) + q_offset
-    m = torch.full((b, n_kv, g, s), NEG_INF, device=q.device)
-    l = torch.zeros((b, n_kv, g, s), device=q.device)
-    acc = torch.zeros((b, n_kv, g, s, d), device=q.device)
+    m = torch.full((b, n_kv, g, s), NEG_INF, **f)
+    l = torch.zeros((b, n_kv, g, s), **f)
+    acc = torch.zeros((b, n_kv, g, s, d), **f)
     hi = max(0, min(t, s + q_offset)) if causal else t
     for t0 in range(0, hi, BLOCK_K):
-        kt = k[:, t0:t0 + BLOCK_K].float()
+        kt = _wide(k[:, t0:t0 + BLOCK_K])
         vt = v[:, t0:t0 + BLOCK_K]
         kpos = torch.arange(t0, t0 + kt.shape[1], device=q.device)
         valid = _visible(qpos, kpos, causal, window)
@@ -77,11 +92,67 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         alpha = torch.exp(m - m_new)
         p = torch.exp(sc - m_new[..., None]).masked_fill(~valid, 0.0)
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bkgst,btkd->bkgsd", _as_terms(p, v.dtype), vt.float())
+        pv = torch.einsum("bkgst,btkd->bkgsd", _as_terms(p, v.dtype), _wide(vt))
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, window: int = 0, q_offset: int = 0,
+                             softcap: float = 0.0):
+    """Gradients (dq, dk, dv) of the attention that gave ``out`` for the
+    output gradient ``dout``, in f32 (f64 for f64 inputs), each cast to its
+    input's dtype.
+
+    Per block of queries it recomputes ``s = q k^T / sqrt(D)`` against the
+    keys the block can see (query head h reads KV head ``h // (H/K)``), the
+    softcap ``c tanh(s / c)``, the masks and ``P = softmax(s)``; then
+    ``dV += sum over the group of P^T dO``, ``dP = dO V^T``,
+    ``dS = P (dP - rowsum(dO * O))``, times ``1 - tanh^2`` under the softcap,
+    ``dQ = dS K / sqrt(D)`` and ``dK += sum over the group of dS^T Q /
+    sqrt(D)``. A query that sees no key has output 0 and gradient 0."""
+    b, s, h, d = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    scale = 1.0 / math.sqrt(d)
+    qg = _wide(q).reshape(b, s, n_kv, g, d)
+    dog = _wide(dout).reshape(b, s, n_kv, g, d)
+    # rowsum(dO * O): (B,K,G,S)
+    delta = (dog * _wide(out).reshape(b, s, n_kv, g, d)).sum(-1).permute(0, 2, 3, 1)
+    k32, v32 = _wide(k), _wide(v)
+    f = dict(device=q.device, dtype=qg.dtype)
+    dq = torch.zeros((b, s, n_kv, g, d), **f)
+    dk = torch.zeros((b, t, n_kv, d), **f)
+    dv = torch.zeros((b, t, n_kv, d), **f)
+    block = max(1, BACKWARD_BLOCK_ELEMENTS // max(1, b * h * t))
+    for s0 in range(0, s, block):
+        s1 = min(s, s0 + block)
+        # Keys the block's queries (positions s0 + q_offset .. s1 - 1 +
+        # q_offset) can see: [lo, hi).
+        hi = max(0, min(t, s1 + q_offset)) if causal else t
+        lo = min(hi, max(0, s0 + q_offset - window + 1)) if window > 0 else 0
+        if hi <= lo:
+            continue
+        qb, dob = qg[:, s0:s1], dog[:, s0:s1]
+        kb, vb = k32[:, lo:hi], v32[:, lo:hi]
+        qpos = torch.arange(s0, s1, device=q.device) + q_offset
+        valid = _visible(qpos, torch.arange(lo, hi, device=q.device), causal, window)
+        sc = torch.einsum("bskgd,btkd->bkgst", qb, kb) * scale
+        if softcap > 0:
+            cap = torch.tanh(sc / softcap)
+            sc = softcap * cap
+        p = torch.softmax(sc.masked_fill(~valid, NEG_INF), dim=-1).masked_fill(~valid, 0.0)
+        dv[:, lo:hi] += torch.einsum("bkgst,bskgd->btkd", p, dob)
+        dp = torch.einsum("bskgd,btkd->bkgst", dob, vb)
+        ds = p * (dp - delta[..., s0:s1, None])
+        if softcap > 0:
+            ds = ds * (1.0 - cap.square())
+        dq[:, s0:s1] = torch.einsum("bkgst,btkd->bskgd", ds, kb) * scale
+        dk[:, lo:hi] += torch.einsum("bkgst,bskgd->btkd", ds, qb) * scale
+    return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -1,16 +1,19 @@
-"""Reference weights into the port: ``repro.models.init_params`` output, as
-numpy arrays, becomes a :class:`~repro_torch.models.transformer.Transformer`
-of the dense, ssm or hybrid family.
+"""Reference weights into the port and back: ``repro.models.init_params``
+output, as numpy arrays, becomes a
+:class:`~repro_torch.models.transformer.Transformer` of the dense, ssm or
+hybrid family (``params_from_jax``), and the port's named tensors (its
+parameters, or the optimizer moments beside them) become a tree in the
+reference's layout (``reference_tree``), which checkpoints use.
 
 The reference stacks layers on leading axes; here each layer is its own
-submodule, so the stacked arrays are split. bf16 arrays (``ml_dtypes``) go
-through float32, which holds every bf16 value exactly. Only tests call this
-with JAX output; it imports no JAX.
+submodule, so the stacked arrays are split, and stacked again on the way
+back. bf16 arrays (``ml_dtypes``) go through float32, which holds every bf16
+value exactly. Only tests call this with JAX output; it imports no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,14 +23,23 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import Transformer
 
 
-def _tensor(a: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+def as_tensor(a: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A tensor, or an array (bf16 ones through float32), on ``device`` in
+    ``dtype``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
     return torch.from_numpy(np.asarray(a).astype(np.float32)).to(device=device,
                                                                   dtype=dtype)
 
 
-def _reference_state(np_tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
-    """The reference tree's leaves under the port's parameter names, the
-    stacked layer axes split into one entry per layer."""
+def _leaf(a: Any):
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def named_leaves(np_tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The reference tree's leaves (arrays or tensors) under the port's
+    parameter names, the stacked layer axes split into one entry per
+    layer."""
     state = {"embed": np_tree["embed"], "final_norm": np_tree["final_norm"]}
     if not cfg.tie_embeddings:
         state["lm_head"] = np_tree["lm_head"]
@@ -36,15 +48,15 @@ def _reference_state(np_tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, 
         for i in range(cfg.n_layers):
             for group in ("attn", "mlp"):
                 for name, stacked in layers[group].items():
-                    state[f"layers.{i}.{group}.{name}"] = np.asarray(stacked)[i]
+                    state[f"layers.{i}.{group}.{name}"] = _leaf(stacked)[i]
             for name in ("norm1", "norm2"):
-                state[f"layers.{i}.{name}"] = np.asarray(layers[name])[i]
+                state[f"layers.{i}.{name}"] = _leaf(layers[name])[i]
         return state
     # ssm leaves are (L, ...), hybrid leaves (G, every, ...): flatten to L.
     lead = 1 if cfg.family == "ssm" else 2
 
     def per_layer(stacked):
-        a = np.asarray(stacked)
+        a = _leaf(stacked)
         return a.reshape(-1, *a.shape[lead:])
 
     for name, stacked in layers["mamba"].items():
@@ -59,6 +71,35 @@ def _reference_state(np_tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, 
         for name in ("shared_norm1", "shared_norm2", "inv_proj"):
             state[name] = np_tree[name]
     return state
+
+
+def _put(tree: Dict[str, Any], path: Sequence[str], leaf: Any) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def reference_tree(named: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``'s split: tensors under the port's
+    parameter names (a model's ``named_parameters()``, or the optimizer
+    moments keyed like them) as a nested dict in the reference's layout,
+    e.g. ``layers/attn/wq`` (L, d, H*D) for the dense family, the layer
+    axes stacked on the tensors' device ((G, every, ...) for hybrid
+    ``layers`` leaves)."""
+    tree: Dict[str, Any] = {}
+    per_layer: Dict[tuple, list] = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(tuple(parts[2:]), []).append((int(parts[1]), t))
+        else:
+            _put(tree, parts, t)
+    for path, items in per_layer.items():
+        stacked = torch.stack([t for _, t in sorted(items, key=lambda it: it[0])])
+        if cfg.family == "hybrid":
+            stacked = stacked.reshape(-1, cfg.hybrid_attn_every, *stacked.shape[1:])
+        _put(tree, ("layers", *path), stacked)
+    return tree
 
 
 def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig, *,
@@ -81,7 +122,7 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig, *,
     dev = resolve_device(device)
     model = Transformer(cfg, device="meta", dtype=dtype)
     dt = model.embed.dtype
-    tensors = {k: _tensor(v, dev, dt) for k, v in _reference_state(np_tree, cfg).items()}
+    tensors = {k: as_tensor(v, dev, dt) for k, v in named_leaves(np_tree, cfg).items()}
     expected = {k: tuple(p.shape) for k, p in model.named_parameters()}
     got = {k: tuple(t.shape) for k, t in tensors.items()}
     if expected != got:

@@ -1,6 +1,6 @@
 """The decoder families as ``nn.Module``s with one submodule per layer, and
-the functions that drive them: ``forward_hidden``, ``init_cache``,
-``prefill`` and ``decode_step``, with the signatures of
+the functions that drive them: ``forward_hidden``, ``forward_train``,
+``init_cache``, ``prefill`` and ``decode_step``, with the signatures of
 ``repro.models.transformer``. Families:
 
   dense   pre-norm GQA transformer (yi, tinyllama, starcoder2, qwen3)
@@ -10,7 +10,9 @@ the functions that drive them: ``forward_hidden``, ``init_cache``,
 
 Weights keep the reference's layouts ((d_in, d_out) matrices, used as
 ``x @ w``), so converted reference weights drop in unchanged. The other
-families (moe, audio, vlm) are not ported yet.
+families (moe, audio, vlm) are not ported yet. Parameters are built with
+``requires_grad=False``, for serving; ``repro_torch.train.init_train_state``
+switches them on. Only the dense family trains (``forward_train``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import Device, resolve_device
@@ -28,6 +31,7 @@ from repro_torch.models.mamba2 import MambaBlock, mamba_block
 
 Cache = Dict[str, Any]
 FAMILIES = ("dense", "ssm", "hybrid")
+TRAIN_FAMILIES = ("dense",)
 
 
 def _dtype(cfg: ModelConfig, dtype: Optional[torch.dtype] = None) -> torch.dtype:
@@ -199,6 +203,47 @@ def lm_logits(params: Transformer, cfg, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Forward / serving
 # ---------------------------------------------------------------------------
+
+
+def _remat(fn, run: RunConfig):
+    """The reference's ``_remat``: unless ``run.remat`` is "none", ``fn`` runs
+    under non-reentrant activation checkpointing, which keeps none of its
+    activations and runs its forward again in backward (so a kernel inside
+    it launches twice a step). The numbers do not change. The reference's
+    "dots" policy, which keeps the matmul outputs, recomputes everything
+    here."""
+    if run.remat == "none":
+        return fn
+
+    def checkpointed(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return checkpointed
+
+
+def forward_train(params: Transformer, cfg: ModelConfig, run: RunConfig,
+                  tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Hidden states (B,S,d) for training and extras (none for the dense
+    family): ``forward_hidden`` without the KV, each block under ``_remat``.
+    The logits are left to the loss, which may chunk over the sequence."""
+    if cfg.family not in TRAIN_FAMILIES:
+        item = ("the ssm and hybrid families train once K4 has a gradient (ROADMAP "
+                "queue A, item 1: the SSD backward)" if cfg.family in FAMILIES else
+                "the moe, audio and vlm families are ROADMAP item 8")
+        raise NotImplementedError(f"training the {cfg.family!r} family ({cfg.name}) "
+                                  f"is not ported yet: {item}")
+    x = embed_tokens(params, cfg, tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+
+    def block(lp, x):
+        return dense_block(lp, x, cfg, run, positions)[0]
+
+    block = _remat(block, run)
+    for lp in params.layers:
+        x = block(lp, x)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps, kernel=uses_kernels(run))
+    return x, {}
 
 
 def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,

@@ -1,0 +1,50 @@
+"""Next-token cross entropy, optionally chunked over the sequence so that the
+(B, S, V) logits are never all held at once (per chunk: (chunk, V)); the
+counterpart of ``repro.train.loss``."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor,
+        vocab: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Summed CE and correct-token count for (N, V) logits / (N,) labels.
+    Padding columns (>= ``vocab``) are masked with ``torch.where``, so that
+    no tensor autograd saves is written in place."""
+    logits = logits.float()
+    if vocab and logits.shape[-1] != vocab:  # mask vocabulary padding
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(cols[None, :] < vocab, logits,
+                             torch.tensor(NEG_INF, device=logits.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, 1, labels[:, None].long())[:, 0]
+    loss_sum = torch.sum(lse - picked)
+    acc = torch.sum(torch.argmax(logits, dim=-1) == labels)
+    return loss_sum, acc
+
+
+def cross_entropy_loss(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                       chunk: int = 0, vocab: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean next-token CE and accuracy (f32 scalars) of hidden (B,S,d) under
+    head (d,V) against labels (B,S), in f32 logits. ``chunk`` > 0 takes the
+    rows in chunks of that many (when it divides B*S and is smaller);
+    ``vocab`` is the true vocabulary when the head is padded."""
+    b, s, d = hidden.shape
+    n = b * s
+    h2 = hidden.reshape(n, d)
+    l2 = labels.reshape(n)
+    head32 = head.float()
+    if chunk <= 0 or n % chunk != 0 or n <= chunk:
+        loss_sum, acc = _ce(h2.float() @ head32, l2, vocab)
+        return loss_sum / n, acc / n
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    acc = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, n, chunk):
+        ls, ac = _ce(h2[i:i + chunk].float() @ head32, l2[i:i + chunk], vocab)
+        loss_sum, acc = loss_sum + ls, acc + ac
+    return loss_sum / n, acc / n

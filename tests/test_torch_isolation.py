@@ -54,7 +54,12 @@ def test_module_list_covers_the_slice():
                  "repro_torch.core.hlo.machine", "repro_torch.core.hlo.costs",
                  "repro_torch.core.hlo.critical_path", "repro_torch.core.hlo.lcd",
                  "repro_torch.core.hlo.hotspots", "repro_torch.core.hlo.roofline",
-                 "repro_torch.core.hlo.export", "repro_torch.core.bench.ibench"):
+                 "repro_torch.core.hlo.export", "repro_torch.core.bench.ibench",
+                 "repro_torch.train", "repro_torch.train.loss", "repro_torch.train.state",
+                 "repro_torch.train.step", "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.ckpt", "repro_torch.models.convert",
+                 "repro_torch.launch.ft", "repro_torch.launch.train"):
         assert name in MODULES
 
 
@@ -178,6 +183,36 @@ def test_serve_cli_raises_without_a_card():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert "tok/s" not in proc.stdout
+
+
+def test_train_cli_raises_without_a_card():
+    _needs_no_card()
+    proc = _python("from repro_torch.launch.train import main; main(['--steps', '1'])")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "loss" not in proc.stdout
+
+
+def test_train_entry_points_raise_without_a_card():
+    _needs_no_card()
+    code = ("from repro_torch.configs import RunConfig, get_config, tiny_variant\n"
+            "from repro_torch.data import DataPipeline\n"
+            "from repro_torch.launch.train import train_loop\n"
+            "from repro_torch.train import init_train_state\n"
+            "cfg = tiny_variant(get_config('tinyllama-1.1b'))\n"
+            "for fn in (lambda: init_train_state(cfg), lambda: DataPipeline(cfg, 1, 8),\n"
+            "           lambda: train_loop(cfg, RunConfig(), steps=1, global_batch=1,\n"
+            "                              seq_len=8)):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as exc:\n"
+            "        assert 'no CUDA device' in str(exc), exc\n"
+            "    else:\n"
+            "        raise SystemExit('ran on the CPU without being asked')\n"
+            "print('RAISED')\n")
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RAISED" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
