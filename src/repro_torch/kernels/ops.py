@@ -5,14 +5,18 @@ to the CUDA kernel, or the wrapper raises. Nothing falls back from one to the
 other. ``LAUNCHES`` counts, per wrapper, the kernels it has launched; a plain
 version adds nothing to it.
 
-``fused_rmsnorm`` and ``flash_attention`` go through the autograd Functions
-``FusedRMSNorm`` and ``FlashAttention`` whenever grad mode is on and an input
-requires grad. The kernels write into fresh outputs through ctypes, which
-autograd cannot see through, so each Function runs the forward (kernel on
-the card, plain version on the CPU) under no_grad and brings its own
-backward: plain PyTorch in f32 (``rmsnorm_rows_backward``,
-``flash_attention_backward``), the same on either device. Autograd never
-traces ``flash_attention_plain``, a tiled Python loop.
+``fused_rmsnorm``, ``flash_attention`` and ``ssd_chunk_dual`` go through the
+autograd Functions ``FusedRMSNorm``, ``FlashAttention`` and ``SSDChunkDual``
+whenever grad mode is on and an input requires grad. The kernels write into
+fresh outputs through ctypes, which autograd cannot see through, so each
+Function runs the forward (kernel on the card, plain version on the CPU)
+under no_grad and brings its own backward: plain PyTorch in f32
+(``rmsnorm_rows_backward``, ``flash_attention_backward``,
+``ssd_intra_chunk_backward``), the same on either device. Autograd never
+traces ``flash_attention_plain``, a tiled Python loop, nor
+``ssd_intra_chunk_plain``, whose bf16 path feeds its products as hi + lo
+terms (autograd would give ``lo`` a zero derivative): SSDChunkDual's
+backward is the gradient of the exact f32 function.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_backward,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm import (rmsnorm_rows_backward, rmsnorm_rows_cuda,
                                          rmsnorm_rows_plain)
-from repro_torch.kernels.ssd_scan import ssd_intra_chunk_cuda, ssd_intra_chunk_plain
+from repro_torch.kernels.ssd_scan import (ssd_intra_chunk_backward, ssd_intra_chunk_cuda,
+                                          ssd_intra_chunk_plain)
 
 LAUNCHES: Dict[str, int] = {"fused_rmsnorm": 0, "flash_attention": 0,
                             "flash_decode": 0, "ssd_chunk_dual": 0}
@@ -56,6 +61,16 @@ def _attention(q, k, v, kw) -> torch.Tensor:
         return flash_attention_plain(q, k, v, **kw)
     out = flash_attention_cuda(q, k, v, **kw)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def _ssd(xdt, cum, bm, cm):
+    if not xdt.is_cuda:
+        return ssd_intra_chunk_plain(xdt, cum, bm, cm)
+    # The kernel reads strided views but needs unit stride over P and N.
+    xdt, bm, cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (xdt, bm, cm))
+    out = ssd_intra_chunk_cuda(xdt, cum, bm, cm)
+    LAUNCHES["ssd_chunk_dual"] += 1
     return out
 
 
@@ -91,6 +106,21 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, dout, **ctx.kw)
         return dq, dk, dv, None, None, None, None
+
+
+class SSDChunkDual(torch.autograd.Function):
+    """``ssd_chunk_dual`` with a gradient; saves xdt, cum, B and C (views as
+    given) and recomputes the decay and scores in backward, one block of
+    heads at a time."""
+
+    @staticmethod
+    def forward(ctx, xdt, cum, bm, cm):
+        ctx.save_for_backward(xdt, cum, bm, cm)
+        return _ssd(xdt, cum, bm, cm)
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        return ssd_intra_chunk_backward(*ctx.saved_tensors, dy, dstates)
 
 
 def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
@@ -129,8 +159,6 @@ def ssd_chunk_dual(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,
                    cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD intra-chunk step: xdt (B,NC,H,Q,P) f32, cum (B,NC,H,Q)
     f32, B/C (B,NC,Q,N) -> (y (B,NC,H,Q,P) f32, states (B,NC,H,N,P) f32)."""
-    if not xdt.is_cuda:
-        return ssd_intra_chunk_plain(xdt, cum, bm, cm)
-    out = ssd_intra_chunk_cuda(xdt, cum, bm, cm)
-    LAUNCHES["ssd_chunk_dual"] += 1
-    return out
+    if _needs_grad(xdt, cum, bm, cm):
+        return SSDChunkDual.apply(xdt, cum, bm, cm)
+    return _ssd(xdt, cum, bm, cm)

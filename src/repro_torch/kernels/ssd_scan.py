@@ -19,6 +19,8 @@ in pieces (P zero-padded or cut in slices of 128, N cut in slices of 256).
 The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
 ``repro/kernels/ssd_scan.py:ssd_intra_chunk``; the inter-chunk recurrence
 stays with the caller (``models/mamba2.py:ssd_chunked``).
+:func:`ssd_intra_chunk_backward` is the gradient of the exact f32 function
+above (no hi + lo terms), in PyTorch, for ``ops.SSDChunkDual``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,16 @@ B_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (32, 64, 128)
 MAX_STATE = 256
 BLOCK = 64  # keys per key tile, as in the kernel
+# Elements of the (B,NC,heads,Q,Q) f32 tensors of one head block of the
+# backward (32 MiB each; zamba2's training shape takes 16 heads a block).
+BACKWARD_BLOCK = 1 << 23
+
+
+def _wide(*tensors, like: torch.Tensor):
+    """The tensors in f32, or in f64 where ``like`` is f64 (as gradcheck
+    gives it)."""
+    dtype = torch.float64 if like.dtype == torch.float64 else torch.float32
+    return tuple(t.to(dtype) for t in tensors)
 
 
 def _terms(t: torch.Tensor, split: bool):
@@ -62,8 +74,7 @@ def ssd_intra_chunk_plain(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor
     two bf16 terms (:func:`_terms`), as the kernel's tensor-core path feeds
     them; with f32 B and C the products are exact f32."""
     split = bm.dtype == torch.bfloat16
-    xdt, cum = xdt.float(), cum.float()
-    bm, cm = bm.float(), cm.float()
+    xdt, cum, bm, cm = _wide(xdt, cum, bm, cm, like=xdt)
     q = xdt.shape[3]
     rows = torch.arange(q, device=xdt.device)
     xs = _terms(xdt, split)
@@ -80,6 +91,56 @@ def ssd_intra_chunk_plain(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor
     weight = torch.exp(cum[..., -1:] - cum)  # (B,NC,H,Q)
     states = _products("bcjn,bchjp->bchnp", (bm,), _terms(xdt * weight[..., None], split))
     return y, states
+
+
+def ssd_intra_chunk_backward(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,
+                             cm: torch.Tensor, dy: torch.Tensor, dstates: torch.Tensor):
+    """(dxdt, dcum, dB, dC) of the exact f32 function of the module
+    docstring, given dy (B,NC,H,Q,P) and dstates (B,NC,H,N,P).
+
+    With M = (C B^T) * L, L_ij = exp(cum_i - cum_j) on j <= i and 0 above,
+    and w_j = exp(cum_last - cum_j): dM = dy xdt^T, dxdt = M^T dy +
+    w * (B dS), the score gradient (dM * L) summed over heads gives dC and
+    part of dB, the state gives dB its (w xdt) dS^T, and cum collects
+    G = dM * M as +row sums and -column sums, then -dw_j w_j and, at the
+    last position, their sum (dw = rows of xdt * (B dS)). Heads go in
+    blocks whose (B,NC,heads,Q,Q) f32 tensors hold at most
+    ``BACKWARD_BLOCK`` elements, so no such tensor of all heads lives. The
+    exponent is masked before ``exp``, so the upper triangle contributes an
+    exact zero. dB and dC come back in B's and C's dtype, dxdt and dcum in
+    f32 (f64 for f64 inputs, as the plain version computes them)."""
+    xdt, cum, dy, dstates, b32, c32 = _wide(xdt, cum, dy, dstates, bm, cm, like=xdt)
+    b, nc, h, q, _ = xdt.shape
+    rows = torch.arange(q, device=xdt.device)
+    valid = rows[None, :] <= rows[:, None]  # (Q, Q): j <= i
+    scores = torch.einsum("bcin,bcjn->bcij", c32, b32)  # (B,NC,Q,Q)
+    dscores = torch.zeros_like(scores)
+    db = torch.zeros_like(b32)
+    dxdt, dcum = torch.empty_like(xdt), torch.empty_like(cum)
+    hb = max(1, min(h, BACKWARD_BLOCK // max(1, b * nc * q * q)))
+    for h0 in range(0, h, hb):
+        heads = slice(h0, h0 + hb)
+        x, c, g, gs = xdt[:, :, heads], cum[:, :, heads], dy[:, :, heads], dstates[:, :, heads]
+        diff = c[..., :, None] - c[..., None, :]  # (B,NC,hb,Q,Q)
+        decay = torch.where(valid, torch.exp(torch.where(valid, diff, 0.0)), 0.0)
+        m = scores[:, :, None] * decay
+        dm = torch.einsum("bchip,bchjp->bchij", g, x)
+        dscores += (dm * decay).sum(dim=2)
+        gm = dm * m  # zero above the diagonal, where m is
+        dc = gm.sum(dim=-1) - gm.sum(dim=-2)
+        del diff, decay, dm, gm
+        weight = torch.exp(c[..., -1:] - c)  # (B,NC,hb,Q)
+        bds = torch.einsum("bcjn,bchnp->bchjp", b32, gs)  # B dS
+        dxdt[:, :, heads] = (torch.einsum("bchij,bchip->bchjp", m, g)
+                             + weight[..., None] * bds)
+        dw = (x * bds).sum(dim=-1) * weight
+        dc -= dw
+        dc[..., -1] += dw.sum(dim=-1)
+        dcum[:, :, heads] = dc
+        db += torch.einsum("bchjp,bchnp->bcjn", x * weight[..., None], gs)
+    dc_out = torch.einsum("bcij,bcjn->bcin", dscores, b32)
+    db += torch.einsum("bcij,bcin->bcjn", dscores, c32)
+    return dxdt, dcum, db.to(bm.dtype), dc_out.to(cm.dtype)
 
 
 def in_kernel_pieces(run, xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,

@@ -1,7 +1,8 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id>``.
 
-Randomly initializes a model of the dense, ssm or hybrid family (e.g.
-``--arch tinyllama-1.1b``, ``--arch mamba2-130m``, ``--arch zamba2-2.7b``;
+Randomly initializes a model of the dense, moe, ssm or hybrid family (e.g.
+``--arch tinyllama-1.1b``, ``--arch deepseek-moe-16b``, ``--arch
+mamba2-130m``, ``--arch zamba2-2.7b``;
 weights from a ``torch.Generator`` with seed 0; the tiny variant unless
 ``--no-tiny``) and serves a batch of synthetic requests through the
 continuous-batching engine, on the CUDA device unless ``--device cpu`` is

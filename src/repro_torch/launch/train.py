@@ -5,8 +5,10 @@ registry, train state, deterministic data pipeline, train step, async
 checkpointing and heartbeat/straggler monitoring. One device and no mesh
 (sharding is ROADMAP item 9). It runs on the CUDA device unless ``--device
 cpu`` is given, through the kernel-backed ops (``attention_impl="flash"``:
-K1 at every norm, K2 at every attention layer); it trains the tiny variant
-unless ``--no-tiny``. Only the dense family trains so far.
+K1 at every norm, K2 at every attention layer, K4 at every Mamba layer); it
+trains the tiny variant unless ``--no-tiny``. The dense, moe, ssm and hybrid
+families train (e.g. ``--arch tinyllama-1.1b``, ``--arch deepseek-moe-16b``,
+``--arch mamba2-130m``, ``--arch zamba2-2.7b``); audio and vlm do not yet.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Reference weights into the port and back: ``repro.models.init_params``
 output, as numpy arrays, becomes a
-:class:`~repro_torch.models.transformer.Transformer` of the dense, ssm or
-hybrid family (``params_from_jax``), and the port's named tensors (its
+:class:`~repro_torch.models.transformer.Transformer` of the dense, moe, ssm
+or hybrid family (``params_from_jax``), and the port's named tensors (its
 parameters, or the optimizer moments beside them) become a tree in the
 reference's layout (``reference_tree``), which checkpoints use.
 
@@ -44,13 +44,18 @@ def named_leaves(np_tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, Any]
     if not cfg.tie_embeddings:
         state["lm_head"] = np_tree["lm_head"]
     layers = np_tree["layers"]
-    if cfg.family == "dense":
-        for i in range(cfg.n_layers):
-            for group in ("attn", "mlp"):
-                for name, stacked in layers[group].items():
-                    state[f"layers.{i}.{group}.{name}"] = _leaf(stacked)[i]
+    if cfg.family in ("dense", "moe"):
+        stacks = [("layers", layers, ("attn", "moe" if cfg.family == "moe" else "mlp"))]
+        if cfg.family == "moe" and cfg.moe_first_dense:
+            stacks.append(("dense_layers", np_tree["dense_layers"], ("attn", "mlp")))
+        for prefix, tree, groups in stacks:
+            for group in groups:
+                for name, stacked in tree[group].items():
+                    for i, leaf in enumerate(_leaf(stacked)):
+                        state[f"{prefix}.{i}.{group}.{name}"] = leaf
             for name in ("norm1", "norm2"):
-                state[f"layers.{i}.{name}"] = _leaf(layers[name])[i]
+                for i, leaf in enumerate(_leaf(tree[name])):
+                    state[f"{prefix}.{i}.{name}"] = leaf
         return state
     # ssm leaves are (L, ...), hybrid leaves (G, every, ...): flatten to L.
     lead = 1 if cfg.family == "ssm" else 2
@@ -73,6 +78,10 @@ def named_leaves(np_tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, Any]
     return state
 
 
+# Parameter-name prefixes of per-layer submodules, which the reference stacks.
+STACKED = ("layers", "dense_layers")
+
+
 def _put(tree: Dict[str, Any], path: Sequence[str], leaf: Any) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
@@ -84,21 +93,21 @@ def reference_tree(named: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict[
     parameter names (a model's ``named_parameters()``, or the optimizer
     moments keyed like them) as a nested dict in the reference's layout,
     e.g. ``layers/attn/wq`` (L, d, H*D) for the dense family, the layer
-    axes stacked on the tensors' device ((G, every, ...) for hybrid
-    ``layers`` leaves)."""
+    axes of ``layers`` (and of the moe family's ``dense_layers``) stacked on
+    the tensors' device ((G, every, ...) for hybrid ``layers`` leaves)."""
     tree: Dict[str, Any] = {}
     per_layer: Dict[tuple, list] = {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), []).append((int(parts[1]), t))
+        if parts[0] in STACKED:
+            per_layer.setdefault((parts[0], *parts[2:]), []).append((int(parts[1]), t))
         else:
             _put(tree, parts, t)
     for path, items in per_layer.items():
         stacked = torch.stack([t for _, t in sorted(items, key=lambda it: it[0])])
-        if cfg.family == "hybrid":
+        if cfg.family == "hybrid" and path[0] == "layers":
             stacked = stacked.reshape(-1, cfg.hybrid_attn_every, *stacked.shape[1:])
-        _put(tree, ("layers", *path), stacked)
+        _put(tree, path, stacked)
     return tree
 
 
@@ -110,6 +119,9 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig, *,
     tied) and
       * dense: layers/{attn/{wq,wk,wv,wo}, mlp/{wi,wo}, norm1, norm2}, each
         leaf (L, ...);
+      * moe: layers/{attn/*, moe/{router,moe_wi,moe_wo,shared_wi,shared_wo},
+        norm1, norm2}, each leaf (L - first_dense, ...), and dense_layers
+        with the dense family's leaves, each (first_dense, ...);
       * ssm: layers/{mamba/{in_proj,conv_w,A_log,D,dt_bias,ssm_norm,out_proj},
         norm1}, each leaf (L, ...);
       * hybrid: layers/{mamba/*, norm1} with leaves (G, every, ...), plus

@@ -4,15 +4,17 @@ the functions that drive them: ``forward_hidden``, ``forward_train``,
 ``repro.models.transformer``. Families:
 
   dense   pre-norm GQA transformer (yi, tinyllama, starcoder2, qwen3)
+  moe     dense attention + GShard MoE FFN (deepseek-moe, phi3.5-moe),
+          optional leading dense-FFN layers (DeepSeek layer 0)
   ssm     Mamba-2 SSD stack (mamba2-130m)
   hybrid  Mamba-2 backbone + one shared attention block every k layers
           (zamba2), on concat(x, embed0) as in Zamba
 
 Weights keep the reference's layouts ((d_in, d_out) matrices, used as
-``x @ w``), so converted reference weights drop in unchanged. The other
-families (moe, audio, vlm) are not ported yet. Parameters are built with
+``x @ w``), so converted reference weights drop in unchanged. The audio
+and vlm families are not ported yet. Parameters are built with
 ``requires_grad=False``, for serving; ``repro_torch.train.init_train_state``
-switches them on. Only the dense family trains (``forward_train``).
+switches them on. Every ported family trains (``forward_train``).
 """
 
 from __future__ import annotations
@@ -28,10 +30,10 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.layers import (INIT_STD, ParamGroup, attention_block, mlp_block,
                                        rms_norm, uses_kernels)
 from repro_torch.models.mamba2 import MambaBlock, mamba_block
+from repro_torch.models.moe import MoE, moe_block
 
 Cache = Dict[str, Any]
-FAMILIES = ("dense", "ssm", "hybrid")
-TRAIN_FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _dtype(cfg: ModelConfig, dtype: Optional[torch.dtype] = None) -> torch.dtype:
@@ -42,7 +44,8 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: only the "
-            f"{', '.join(FAMILIES)} families are (ROADMAP A8 ports the others)")
+            f"{', '.join(FAMILIES)} families are (ROADMAP item 8 ports the audio "
+            f"and vlm families)")
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -92,13 +95,29 @@ class MambaLayer(nn.Module):
         self.norm1 = _ones(cfg.d_model, kw)
 
 
+class MoELayer(nn.Module):
+    """One pre-norm MoE layer: attn (wq, wk, wv, wo), moe (``MoE``), norm1,
+    norm2."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.attn = ParamGroup(_attn_shapes(cfg, cfg.d_model),
+                               ones=("q_norm", "k_norm"), **kw)
+        self.moe = MoE(cfg, **kw)
+        self.norm1 = _ones(cfg.d_model, kw)
+        self.norm2 = _ones(cfg.d_model, kw)
+
+
 class Transformer(nn.Module):
     """Decoder weights: embed, layers, final_norm and lm_head (absent when
     ``cfg.tie_embeddings``); for the hybrid family also the shared block
     (shared_attn and shared_mlp on 2*d_model inputs, shared_norm1/2) and
     inv_proj (G, d, d), one per invocation. ``layers`` holds a
-    ``DenseBlock`` per layer (dense) or a ``MambaLayer`` per layer (ssm;
-    hybrid, group g's layer e at index g * every + e). Initialized N(0, 0.02)
+    ``DenseBlock`` per layer (dense), a ``MambaLayer`` per layer (ssm;
+    hybrid, group g's layer e at index g * every + e) or a ``MoELayer`` per
+    MoE layer (moe, after the ``moe_first_dense`` ``DenseBlock``s of
+    ``dense_layers``). Initialized N(0, 0.02)
     from ``generator`` (seed 0 on ``device`` when None), norms and the SSM's
     D at one, A_log and dt_bias at zero."""
 
@@ -126,6 +145,11 @@ class Transformer(nn.Module):
         elif cfg.family == "ssm":
             self.layers = nn.ModuleList(MambaLayer(cfg, **kw)
                                         for _ in range(cfg.n_layers))
+        elif cfg.family == "moe":
+            self.dense_layers = nn.ModuleList(DenseBlock(cfg, **kw)
+                                              for _ in range(cfg.moe_first_dense))
+            self.layers = nn.ModuleList(MoELayer(cfg, **kw) for _ in
+                                        range(cfg.n_layers - cfg.moe_first_dense))
         else:  # hybrid
             groups = _n_groups(cfg)
             self.layers = nn.ModuleList(MambaLayer(cfg, **kw) for _ in
@@ -161,6 +185,18 @@ def dense_block(lp: DenseBlock, x, cfg, run, positions, kv_cache=None,
     x = x + h
     h = mlp_block(lp.mlp, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg.act)
     return x + h, kv
+
+
+def moe_layer_block(lp: MoELayer, x, cfg, run, positions, kv_cache=None,
+                    cache_pos=None):
+    """One pre-norm MoE layer: (x + attn + moe, kv, aux)."""
+    kernel = uses_kernels(run)
+    h, kv = attention_block(lp.attn, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
+                            cfg, run, positions, kv_cache=kv_cache, cache_pos=cache_pos)
+    x = x + h
+    h, aux = moe_block(lp.moe, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg,
+                       dispatch_mode=run.moe_dispatch)
+    return x + h, kv, aux
 
 
 def mamba_layer(lp: MambaLayer, x, cfg, run, ssm_state=None, conv_state=None,
@@ -223,27 +259,54 @@ def _remat(fn, run: RunConfig):
 
 def forward_train(params: Transformer, cfg: ModelConfig, run: RunConfig,
                   tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Hidden states (B,S,d) for training and extras (none for the dense
-    family): ``forward_hidden`` without the KV, each block under ``_remat``.
-    The logits are left to the loss, which may chunk over the sequence."""
-    if cfg.family not in TRAIN_FAMILIES:
-        item = ("the ssm and hybrid families train once K4 has a gradient (ROADMAP "
-                "queue A, item 1: the SSD backward)" if cfg.family in FAMILIES else
-                "the moe, audio and vlm families are ROADMAP item 8")
-        raise NotImplementedError(f"training the {cfg.family!r} family ({cfg.name}) "
-                                  f"is not ported yet: {item}")
+    """Hidden states (B,S,d) for training and extras (``aux``, the mean MoE
+    load-balancing loss, for the moe family): ``forward_hidden`` without the
+    caches, under ``_remat`` per dense block, MoE layer and Mamba layer, and
+    per hybrid group (its Mamba layers and the shared block after them, on
+    concat(x, x0): x0, the embedding, enters every group, so its gradient
+    sums over the groups). The logits are left to the loss, which may chunk
+    over the sequence."""
+    _check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    extras: Dict[str, Any] = {}
 
-    def block(lp, x):
+    def dense(lp, x):
         return dense_block(lp, x, cfg, run, positions)[0]
 
-    block = _remat(block, run)
-    for lp in params.layers:
-        x = block(lp, x)
+    if cfg.family in ("dense", "moe"):
+        block = _remat(dense, run)
+        for lp in (params.layers if cfg.family == "dense" else params.dense_layers):
+            x = block(lp, x)
+    if cfg.family == "moe":
+        def moe_layer(lp, x):
+            x, _, aux = moe_layer_block(lp, x, cfg, run, positions)
+            return x, aux
+
+        layer, auxes = _remat(moe_layer, run), []
+        for lp in params.layers:
+            x, aux = layer(lp, x)
+            auxes.append(aux)
+        extras["aux"] = torch.stack(auxes).mean()
+    elif cfg.family == "ssm":
+        layer = _remat(lambda lp, x: mamba_layer(lp, x, cfg, run)[0], run)
+        for lp in params.layers:
+            x = layer(lp, x)
+    elif cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every
+
+        def group(g, x, x0):
+            for lp in params.layers[g * every:(g + 1) * every]:
+                x = mamba_layer(lp, x, cfg, run)[0]
+            return hybrid_shared_block(params, x, x0, params.inv_proj[g], cfg, run,
+                                       positions)[0]
+
+        group, x0 = _remat(group, run), x
+        for g in range(_n_groups(cfg)):
+            x = group(g, x, x0)
     x = rms_norm(x, params.final_norm, cfg.norm_eps, kernel=uses_kernels(run))
-    return x, {}
+    return x, extras
 
 
 def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,
@@ -251,20 +314,33 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,
                    collect_kv: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Token embeddings through the stack.
 
-    Returns (hidden (B,S,d), extras). With ``collect_kv``, ``extras["kv"]``
-    lists the rope'd (K, V), (B,S,K,D) each, of every attention layer (dense)
-    or shared-block invocation (hybrid), and ``extras["ssm"]`` the
-    (ssm (B,H,N,P), conv (B,K-1,C)) states of every Mamba layer in order.
+    Returns (hidden (B,S,d), extras). For the moe family ``extras["aux"]``
+    is the MoE layers' mean load-balancing loss. With ``collect_kv``,
+    ``extras["kv"]`` lists the rope'd (K, V), (B,S,K,D) each, of every
+    attention layer (dense; moe, its MoE layers, and ``extras["dense_kv"]``
+    its leading dense layers) or shared-block invocation (hybrid), and
+    ``extras["ssm"]`` the (ssm (B,H,N,P), conv (B,K-1,C)) states of every
+    Mamba layer in order.
     """
     extras: Dict[str, Any] = {}
     x = embed_tokens(params, cfg, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    kvs, states = [], []
+    kvs, states, dense_kvs = [], [], []
     if cfg.family == "dense":
         for lp in params.layers:
             x, kv = dense_block(lp, x, cfg, run, positions)
             kvs.append(kv)
+    elif cfg.family == "moe":
+        for lp in params.dense_layers:
+            x, kv = dense_block(lp, x, cfg, run, positions)
+            dense_kvs.append(kv)
+        auxes = []
+        for lp in params.layers:
+            x, kv, aux = moe_layer_block(lp, x, cfg, run, positions)
+            kvs.append(kv)
+            auxes.append(aux)
+        extras["aux"] = torch.stack(auxes).mean()
     elif cfg.family == "ssm":
         for lp in params.layers:
             x, ssm, conv = mamba_layer(lp, x, cfg, run)
@@ -282,6 +358,8 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,
     if collect_kv:
         if kvs:
             extras["kv"] = kvs
+        if dense_kvs:
+            extras["dense_kv"] = dense_kvs
         if states:
             extras["ssm"] = states
     x = rms_norm(x, params.final_norm, cfg.norm_eps, kernel=uses_kernels(run))
@@ -294,6 +372,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     filled; every row shares it).
 
     * dense: k/v (L, B, max_len, K, D).
+    * moe: k/v (L - first_dense, B, max_len, K, D) for the MoE layers and
+      dk/dv (first_dense, B, max_len, K, D) for the leading dense ones.
     * ssm: ssm (L, B, H, N, P) and conv (L, B, K-1, C), C = d_inner + 2N.
     * hybrid: ssm (G, every, B, H, N, P), conv (G, every, B, K-1, C) and a
       ring buffer k/v (G, B, min(window, max_len), K, D) per invocation.
@@ -302,9 +382,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     dev = resolve_device(device)
     kw = dict(device=dev, dtype=_dtype(cfg, dtype))
     cache: Cache = {"pos": 0}
-    if cfg.family == "dense":
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-        cache["k"], cache["v"] = torch.zeros(shape, **kw), torch.zeros(shape, **kw)
+    if cfg.family in ("dense", "moe"):
+        dense = cfg.moe_first_dense if cfg.family == "moe" else 0
+        for k, v, layers in (("k", "v", cfg.n_layers - dense), ("dk", "dv", dense)):
+            if layers:
+                shape = (layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+                cache[k], cache[v] = torch.zeros(shape, **kw), torch.zeros(shape, **kw)
         return cache
     lead = (cfg.n_layers,) if cfg.family == "ssm" else (_n_groups(cfg), cfg.hybrid_attn_every)
     conv_ch = cfg.d_inner + 2 * cfg.ssm_state
@@ -339,10 +422,12 @@ def prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device,
                        dtype=params.embed.dtype)
-    w = s if cfg.family == "dense" else min(cfg.window or s, s)
-    for i, (k, v) in enumerate(extras.get("kv", ())):
-        cache["k"][i, :, :w] = k[:, s - w:]
-        cache["v"][i, :, :w] = v[:, s - w:]
+    w = min(cfg.window or s, s) if cfg.family == "hybrid" else s
+    for names, kvs in ((("k", "v"), extras.get("kv", ())),
+                       (("dk", "dv"), extras.get("dense_kv", ()))):
+        for i, kv in enumerate(kvs):
+            for name, t in zip(names, kv):
+                cache[name][i, :, :w] = t[:, s - w:]
     if "ssm" in extras:
         ssm_l, conv_l = _layer_states(cache)
         for i, (ssm, conv) in enumerate(extras["ssm"]):
@@ -359,18 +444,27 @@ def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
     The cache tensors are updated in place (the new token's K/V, the SSM and
     conv states), so the returned cache shares them with the one passed in;
     only ``pos`` differs. A hybrid writes position ``pos`` to ring slot
-    ``pos % wlen`` and attends the first ``min(pos + 1, wlen)`` slots.
+    ``pos % wlen`` and attends the first ``min(pos + 1, wlen)`` slots. A moe
+    step routes its B tokens as one group, whose capacity is that of B
+    tokens (as in the reference).
     """
     pos = cache["pos"]
     b = tokens.shape[0]
     x = embed_tokens(params, cfg, tokens)
     positions = torch.full((b, 1), pos, device=x.device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         if pos >= cache["k"].shape[2]:
             raise ValueError(f"KV cache of {cache['k'].shape[2]} positions is full")
-        for i, lp in enumerate(params.layers):
+        dense = params.layers if cfg.family == "dense" else params.dense_layers
+        keys = ("k", "v") if cfg.family == "dense" else ("dk", "dv")
+        for i, lp in enumerate(dense):
             x, _ = dense_block(lp, x, cfg, run, positions,
-                               kv_cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+                               kv_cache=(cache[keys[0]][i], cache[keys[1]][i]), cache_pos=pos)
+        if cfg.family == "moe":
+            for i, lp in enumerate(params.layers):
+                x, _, _ = moe_layer_block(lp, x, cfg, run, positions,
+                                          kv_cache=(cache["k"][i], cache["v"][i]),
+                                          cache_pos=pos)
     else:
         ssm_l, conv_l = _layer_states(cache)
 

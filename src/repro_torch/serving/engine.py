@@ -4,11 +4,11 @@ Requests are left-padded (with token 0, which is attended, as in the
 reference) into waves of at most ``batch_size``; a wave runs prefill, then
 greedy decode steps until every request has its tokens or hit ``eos_id``,
 and the next wave takes the freed slots. The semantics are those of
-``repro.serving.engine.ServeEngine``, for the dense, ssm and hybrid families;
-the default run config routes the model through the kernel-backed ops
-(``attention_impl="flash"``). Beside decoding, the engine serves
-kernel-analysis requests through a co-resident ``AnalysisService`` on its
-own device (``analysis``, ``analyze_asm``).
+``repro.serving.engine.ServeEngine``, for the dense, moe, ssm and hybrid
+families; the default run config routes the model through the
+kernel-backed ops (``attention_impl="flash"``). Beside decoding, the engine
+serves kernel-analysis requests through a co-resident ``AnalysisService``
+on its own device (``analysis``, ``analyze_asm``).
 """
 
 from __future__ import annotations
@@ -111,8 +111,9 @@ class ServeEngine:
     def _grow_cache(self, cache: Cache, new_len: int, batch: int) -> Cache:
         """A cache for ``new_len`` positions holding ``cache``'s.
 
-        k/v grow to what ``init_cache`` gives for ``new_len`` (a hybrid ring
-        buffer to ``min(window, new_len)``), zeros after the old positions;
+        k/v (and a moe cache's dk/dv) grow to what ``init_cache`` gives for
+        ``new_len`` (a hybrid ring buffer to ``min(window, new_len)``), zeros
+        after the old positions;
         the ssm and conv states carry over unchanged. A cache with nothing to
         grow (no k/v, or k/v long enough already) is returned as it is. On
         ``_run_wave``'s path prefill has sized the cache already, so this
@@ -129,8 +130,9 @@ class ServeEngine:
             return cache
         grown = init_cache(self.cfg, batch, new_len, device=cache["k"].device,
                            dtype=cache["k"].dtype)
-        for key in ("k", "v"):
-            grown[key][:, :, :old_len] = cache[key]
+        for key in ("k", "v", "dk", "dv"):
+            if key in cache:
+                grown[key][:, :, :old_len] = cache[key]
         for key in ("ssm", "conv"):
             if key in cache:
                 grown[key] = cache[key]

@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models.convert import STACKED
 from repro_torch.models.transformer import forward_train
 from repro_torch.optim import adamw_update, cosine_schedule
 from repro_torch.optim.adamw import compress_int8, decompress_int8
@@ -49,7 +50,7 @@ def _reference_leaf(name: str) -> str:
     """The reference leaf a parameter belongs to: its name without the layer
     index (the reference stacks the layers into one tensor)."""
     parts = name.split(".")
-    return ".".join(parts[:1] + parts[2:]) if parts[0] == "layers" else name
+    return ".".join(parts[:1] + parts[2:]) if parts[0] in STACKED else name
 
 
 def _int8_roundtrip(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -47,7 +47,7 @@ from repro_torch.data import DataPipeline, make_batch
 from repro_torch.kernels import ops
 from repro_torch.launch.ft import HeartbeatRegistry, StragglerDetector, Supervisor
 from repro_torch.launch.train import train_loop
-from repro_torch.models import forward_train, init_params
+from repro_torch.models import forward_train
 from repro_torch.models.convert import reference_tree
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule, global_norm
 from repro_torch.optim.adamw import compress_int8, decompress_int8
@@ -232,13 +232,9 @@ def test_kernel_path_launches_per_step(monkeypatch, remat):
                      else {"norm": 4 * L + 1, "attention": 2 * L})
 
 
-def test_forward_train_raises_for_families_without_training():
-    for arch in ("mamba2-130m", "zamba2-2.7b"):
-        cfg = tiny_variant(get_config(arch))
-        model = init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="SSD backward"):
-            forward_train(model, cfg, RunConfig(), torch.zeros((1, 4), dtype=torch.long))
-    cfg = tiny_variant(get_config("deepseek-moe-16b"))
+@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
+def test_forward_train_raises_for_families_without_training(arch):
+    cfg = tiny_variant(get_config(arch))
     with pytest.raises(NotImplementedError, match="item 8"):
         forward_train(None, cfg, RunConfig(), torch.zeros((1, 4), dtype=torch.long))
 
