@@ -10,7 +10,11 @@ the repository is not beside it). It
    and bf16, at the serve paths' shapes (RMSNorm at every width the paths
    norm, attention at head dims 64, 80 and deepseek-moe-16b's 128 (H = K =
    16, G 1 at decode) with softcap, query offset, window and D 32 and 96
-   beside them, the SSD step on both of its
+   beside them; without the causal mask at whisper-base's encoder (1500
+   frames) and cross-attention (64 queries against 1500 keys) and a ragged
+   S != T; phi-3-vision's prefill (1088 positions, D 96, H = K = 32); the
+   decode caches of both, whisper's cross cache whole and phi-3-vision's at
+   lengths past its T; the SSD step on both of its
    paths, bf16 B/C on the tensor cores and f32 B/C on the CUDA cores, at the
    zamba2-2.7b and mamba2-130m shapes, the bf16 path also against the exact
    f32 form, and its wrapper at P and N the kernel cuts into pieces) and at
@@ -22,13 +26,17 @@ the repository is not beside it). It
 4. serves random prompts through ``ServeEngine.generate`` at full width
    and depth (bf16, random weights from seed 0): tinyllama-1.1b,
    zamba2-2.7b and deepseek-moe-16b with 8 requests of 512 tokens at batch
-   4 and 64 new tokens, mamba2-130m with 4 such requests and 16 new tokens.
+   4 and 64 new tokens, mamba2-130m with 4 such requests and 16 new tokens,
+   whisper-base with 8 requests of 64 tokens and 192 new ones over 1500
+   seeded frame embeddings, phi-3-vision-4.2b with 8 requests of 512
+   tokens and 64 new ones after 576 seeded patch embeddings.
    For each it checks the exact kernel launches of that run, and, but for
    deepseek-moe-16b, that a decode step's logits match prefill's on the
-   same prefix, and (tinyllama, zamba2) that the kernel path matches the
-   plain path in f32 and bf16; deepseek-moe-16b's kernel path is held to
-   its chunked path in f32, prefill and one decode step, at its dense layer
-   and 3 MoE layers (``PHASES`` says why);
+   same prefix, and (tinyllama, zamba2, whisper-base, phi-3-vision) that
+   the kernel path matches the plain path in f32 and bf16;
+   deepseek-moe-16b's kernel path is held to its chunked path in f32,
+   prefill and one decode step, at its dense layer and 3 MoE layers
+   (``PHASES`` says why);
 5. runs the analyzer (``repro_torch.api.analyze``, each call a wave of one)
    on the card and on the host over the Gauss-Seidel kernel of each of the
    five machine models x unroll {1, 2, 4} x predictors {all, tp+cp+lcd, tp}
@@ -79,18 +87,24 @@ the repository is not beside it). It
    (``ops.FusedRMSNorm``, ``ops.FlashAttention``: the kernel forward, a
    hand-written backward in PyTorch) against autograd through the plain
    formulas (``rmsnorm_rows_plain``, ``layers.naive_attention``) in f32 and
-   bf16 at the slice's shapes and beside them, each backward timed; (d) the
+   bf16 at the slice's shapes and beside them (non-causal at whisper-base's
+   encoder and cross shapes, phi-3-vision's), each backward timed; (d) the
    Function of K4 (``ops.SSDChunkDual``) against autograd through the exact
    f32 form at zamba2-2.7b's and mamba2-130m's training shapes, f32 and
    bf16 B/C, each backward timed against its bound; (b, e) one step's loss
-   and gradients of tinyllama-1.1b, mamba2-130m, zamba2-2.7b and
-   deepseek-moe-16b at full width, each cut in depth, in f32 with TF32 off,
+   and gradients of tinyllama-1.1b, mamba2-130m, zamba2-2.7b,
+   deepseek-moe-16b and phi-3-vision-4.2b at full width, each cut in depth,
+   and of whisper-base whole, in f32 with TF32 off,
    on the kernel path against the ``chunked`` path, every parameter with a
    gradient (every expert of every MoE layer, and an aux loss above 0);
    (c, f) ``train_loop`` in bf16 at full width and depth of tinyllama-1.1b,
    mamba2-130m and zamba2-2.7b, 8 steps of 4 x 512 tokens on the Markov
-   pipeline, with the loss falling on the run and on a held-out batch (for
-   mamba2-130m the held-out loss is recorded, ``TRAIN_RUNS`` says why) and
+   pipeline, whisper-base on 4 x 448 tokens beside 1500 frames and
+   phi-3-vision-4.2b on 4 x (576 patches + 512 tokens), with the loss
+   falling on the run and on a held-out batch (for mamba2-130m and
+   phi-3-vision the held-out loss is recorded; whisper-base records both
+   and gates on a batch's loss falling under steps on it, ``TRAIN_RUNS``
+   says why) and
    exact kernel launches per step, and 4 steps of deepseek-moe-16b cut to
    its dense layer and 3 MoE layers; then each run's step ms, tokens/s,
    forward and backward ms, device busy and idle share, peak memory and the
@@ -124,12 +138,22 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 REQUESTS, PROMPT_LEN, BATCH, NEW_TOKENS = 8, 512, 4, 64
-# Serve phases, each on prompts of PROMPT_LEN tokens at batch BATCH: the
-# model at full width and depth (layers, d_model), the requests and new
-# tokens, whether the kernel path is held to the plain path, and the kernel
-# launches of one prefill (K1 at every norm, K2 at every attention layer or
-# shared-block invocation, K4 at every Mamba layer); a decode step launches
-# as many K1, K3 where the prefill launched K2, and no K4.
+# whisper-base: 30 s of audio is 1500 encoder frames; 64 prompt tokens and
+# 192 new ones stay inside its published 448-token decoder context.
+WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_NEW = 1500, 64, 192
+WHISPER_T = WHISPER_PROMPT + WHISPER_NEW
+# phi-3-vision-4.2b: 576 patch embeddings before a 512-token prompt.
+PHI_PATCHES = 576
+PHI_SEQ = PHI_PATCHES + PROMPT_LEN
+WHISPER_CONTEXT = 448  # whisper-base's decoder context: its training sequence
+# Serve phases, each on prompts of PROMPT_LEN tokens (or ``prompt_len``) at
+# batch BATCH: the model at full width and depth (layers, d_model), the
+# requests and new tokens, whether the kernel path is held to the plain
+# path, and the kernel launches of one prefill (K1 at every norm, K2 at
+# every attention layer or shared-block invocation, K4 at every Mamba
+# layer); a decode step launches as many K1, K3 where the prefill launched
+# K2, and no K4, unless ``per_step`` says otherwise. ``frontend`` models
+# take a seeded frontend (B, frontend_len, d_model), N(0, 0.02) in bf16.
 # ``bf16_decode_tol`` bounds the bf16 logits of a decode step against
 # prefill's (absolute). tinyllama keeps the 0.1 of tests/test_models.py.
 # zamba2 is held to 0.2: on the H100 its kernel path reads 0.155 and the
@@ -137,7 +161,9 @@ REQUESTS, PROMPT_LEN, BATCH, NEW_TOKENS = 8, 512, 4, 64
 # run their products through different cuBLAS kernels, and 63 blocks carry
 # the rounding on), so 0.1 holds at zamba2's depth for no path that rounds
 # as the reference does; f32 holds every path to 2e-3. The plain path's gap
-# is logged beside the check.
+# is logged beside the check. phi-3-vision-4.2b is held to 0.3 on the same
+# grounds: its kernel path reads 0.213 and its plain path 0.251 on the
+# H100 (32 layers at d 3072 after 576 patches), f32 5.6e-5.
 PHASES = (
     dict(arch="tinyllama-1.1b", layers=22, d_model=2048, requests=REQUESTS,
          new_tokens=NEW_TOKENS, against_plain=True, bf16_decode_tol=0.1,
@@ -161,6 +187,25 @@ PHASES = (
     dict(arch="deepseek-moe-16b", layers=28, d_model=2048, requests=REQUESTS,
          new_tokens=NEW_TOKENS, against_plain=False, bf16_decode_tol=None, paths_layers=4,
          per_prefill={"fused_rmsnorm": 2 * 28 + 1, "flash_attention": 28, "ssd_chunk_dual": 0}),
+    # An encoder of 6 layers over 1500 frames (K1 at 2 norms a layer and
+    # enc_final_norm, K2 non-causal a layer), a decoder of 6 (K1 at norm1,
+    # norm3, norm2 and the final norm; K2 causal and cross a layer at
+    # prefill, K3 against the self and the cross cache at a decode step).
+    dict(arch="whisper-base", layers=6, d_model=512, requests=REQUESTS,
+         prompt_len=WHISPER_PROMPT, new_tokens=WHISPER_NEW, frontend=WHISPER_FRAMES,
+         against_plain=True, bf16_decode_tol=0.1,
+         per_prefill={"fused_rmsnorm": 2 * 6 + 1 + 3 * 6 + 1, "flash_attention": 6 + 2 * 6,
+                      "ssd_chunk_dual": 0},
+         per_step={"fused_rmsnorm": 3 * 6 + 1, "flash_attention": 0, "flash_decode": 2 * 6,
+                   "ssd_chunk_dual": 0}),
+    # 3.82 B parameters, 7.64 GB in bf16. The engine sizes the cache for
+    # prompt + new tokens as the reference's does, which leaves out the 576
+    # patches: the 1088 slots of prefill hold, and every decode step writes
+    # the last slot (the reference's clamp, ROADMAP substrate notes). The
+    # decode-matches-prefill check sizes its cache to hold the step.
+    dict(arch="phi-3-vision-4.2b", layers=32, d_model=3072, requests=REQUESTS,
+         new_tokens=NEW_TOKENS, frontend=PHI_PATCHES, against_plain=True, bf16_decode_tol=0.3,
+         per_prefill={"fused_rmsnorm": 2 * 32 + 1, "flash_attention": 32, "ssd_chunk_dual": 0}),
 )
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores
@@ -202,8 +247,9 @@ def time_ms(fn, reps=20, warmup=3):
     from torch.profiler import ProfilerActivity, profile
 
     global _FLUSH
-    if _FLUSH is None:
-        _FLUSH = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+    if _FLUSH is None:  # a normal tensor, also when first made under inference mode
+        with torch.inference_mode(False):
+            _FLUSH = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
@@ -335,22 +381,29 @@ def check_kernels(port):
 
     # K1: rows = B*S at prefill, B at decode, at every width the serve paths
     # norm: tinyllama 2048; zamba2 2560 (norm1, final_norm) and 5120
-    # (ssm_norm, the shared block's norms); mamba2-130m 768 and 1536.
+    # (ssm_norm, the shared block's norms); mamba2-130m 768 and 1536;
+    # whisper-base 512 (encoder rows B*1500, decoder rows B*64) and
+    # phi-3-vision 3072 (rows B*(576 + 512)).
     # d = 2050 is not in 16-byte vectors and takes the one-element loop;
     # d = 8200 is wider than the register kernel holds (8192) and takes the
     # loop that reads the row twice.
     widths = (2048, 2560, 5120, 768, 1536)
+    slice_rows = [(BATCH * WHISPER_FRAMES, 512), (BATCH * WHISPER_PROMPT, 512), (BATCH, 512),
+                  (BATCH * (PHI_PATCHES + PROMPT_LEN), 3072), (BATCH, 3072)]
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
         for rows, d in [(r, d) for d in widths for r in (BATCH * PROMPT_LEN, BATCH)] + \
-                [(7, 2050), (3, 8200)]:
+                slice_rows + [(7, 2050), (3, 8200)]:
             x, w = rnd(rows, d, dtype=dtype), rnd(d, dtype=dtype)
             checks.append(compare("fused_rmsnorm", [rows, d], ops.fused_rmsnorm(x, w),
                                   rms.rmsnorm_rows_plain(x, w)))
     timings = []
     # tinyllama's prefill and decode rows, then every other width at prefill.
+    # whisper-base's and phi-3-vision's rows: serve prefill and decode, and
+    # whisper's decoder at its training length.
     for rows, d in [(BATCH * PROMPT_LEN, 2048), (BATCH, 2048)] + \
-            [(BATCH * PROMPT_LEN, d) for d in widths[1:]]:
+            [(BATCH * PROMPT_LEN, d) for d in widths[1:]] + slice_rows + \
+            [(BATCH * WHISPER_CONTEXT, 512)]:
         x = rnd(rows, d, dtype=torch.bfloat16)
         w = rnd(d, dtype=torch.bfloat16)
         timings.append(timing(
@@ -364,11 +417,19 @@ def check_kernels(port):
     # (D 80, 32 KV heads, window 4096), ragged S = T (77, 100, 5), a window
     # of 17, phi-3-vision's D 96, D 32 and 128, a logit softcap, a query
     # offset (40 queries at positions 90.. against 130 keys), and
-    # deepseek-moe-16b's prefill (D 128, H = K = 16).
-    # (b, s, t, h, kv, d, window, q_offset, softcap)
+    # deepseek-moe-16b's prefill (D 128, H = K = 16); without the causal
+    # mask, whisper-base's encoder (S = T = 1500: 23 KV tiles and a ragged one
+    # of 28 keys), its cross-attention (64 queries against 1500 keys, no
+    # query offset) and a small ragged case (37 queries, 130 keys, D 96);
+    # and phi-3-vision's prefill (576 patches + 512 tokens, D 96, H = K = 32).
+    # (b, s, t, h, kv, d, window, q_offset, softcap[, causal])
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s, t, h, kv, d, win, qoff, cap in (
+        for b, s, t, h, kv, d, win, qoff, cap, *causal in (
+                (BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 8, 8, 64, 0, 0, 0.0, False),
+                (BATCH, WHISPER_PROMPT, WHISPER_FRAMES, 8, 8, 64, 0, 0, 0.0, False),
+                (2, 37, 130, 8, 2, 96, 0, 0, 0.0, False),
+                (BATCH, PHI_SEQ, PHI_SEQ, 32, 32, 96, 0, 0, 0.0),
                 (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 4, 64, 0, 0, 0.0),
                 (3, 77, 77, 32, 4, 64, 0, 0, 0.0),
                 (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 32, 80, 4096, 0, 0.0),
@@ -379,21 +440,37 @@ def check_kernels(port):
                 (BATCH, PROMPT_LEN, PROMPT_LEN, 16, 16, 128, 0, 0, 0.0)):
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, kv, d, dtype=dtype), \
                 rnd(b, t, kv, d, dtype=dtype)
-            kw = dict(causal=True, window=win, q_offset=qoff, softcap=cap)
-            checks.append(compare("flash_attention", [b, s, t, h, kv, d, win, qoff, cap],
+            kw = dict(causal=causal == [], window=win, q_offset=qoff, softcap=cap)
+            checks.append(compare("flash_attention",
+                                  [b, s, t, h, kv, d, win, qoff, cap, kw["causal"]],
                                   ops.flash_attention(q, k, v, **kw),
                                   fa.flash_attention_plain(q, k, v, **kw)))
+            del q, k, v
     timings = []
     dt = torch.bfloat16
-    for b, s, h, kv, d in ((BATCH, PROMPT_LEN, 32, 4, 64), (BATCH, PROMPT_LEN, 32, 32, 80),
-                           (BATCH, PROMPT_LEN, 16, 16, 128)):
-        q, k, v = rnd(b, s, h, d, dtype=dt), rnd(b, s, kv, d, dtype=dt), rnd(b, s, kv, d, dtype=dt)
-        pairs = s * (s + 1) // 2  # causal (query, key) pairs per head
+    # (b, s, t, h, kv, d, causal): the served prefills, then whisper-base's
+    # encoder and cross-attention, which see every key.
+    for b, s, t, h, kv, d, causal in (
+            (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 4, 64, True),
+            (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 32, 80, True),
+            (BATCH, PROMPT_LEN, PROMPT_LEN, 16, 16, 128, True),
+            (BATCH, PHI_SEQ, PHI_SEQ, 32, 32, 96, True),
+            (BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 8, 8, 64, False),
+            (BATCH, WHISPER_PROMPT, WHISPER_FRAMES, 8, 8, 64, False),
+            # whisper-base's decoder: self-attention at the served prompt
+            # and at the training length, cross-attention at the latter.
+            (BATCH, WHISPER_PROMPT, WHISPER_PROMPT, 8, 8, 64, True),
+            (BATCH, WHISPER_CONTEXT, WHISPER_CONTEXT, 8, 8, 64, True),
+            (BATCH, WHISPER_CONTEXT, WHISPER_FRAMES, 8, 8, 64, False)):
+        q, k, v = rnd(b, s, h, d, dtype=dt), rnd(b, t, kv, d, dtype=dt), rnd(b, t, kv, d, dtype=dt)
+        pairs = s * (s + 1) // 2 if causal else s * t  # (query, key) pairs per head
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         timings.append(timing(
-            [b, s, h, kv, d], lambda: ops.flash_attention(q, k, v, causal=True),
-            lambda: fa.flash_attention_plain(q, k, v, causal=True),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+            [b, s, t, h, kv, d, causal] if not causal or s != t else [b, s, h, kv, d],
+            lambda: ops.flash_attention(q, k, v, causal=causal),
+            lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                   enable_gqa=True),
             flops=4 * b * h * d * pairs, nbytes=nbytes(q, k, v, q), peak=PEAK_BF16_FLOPS))
     results["flash_attention"] = dict(checks=checks, timings=timings)
 
@@ -417,7 +494,16 @@ def check_kernels(port):
                 (3, 100, 32, 32, 80, [0, 37, 99], 16, 30.0),
                 (2, 130, 8, 2, 96, [130, 65], 0, 0.0), (2, 130, 8, 2, 128, [64, 1], 0, 0.0),
                 (2, 130, 64, 1, 64, [130, 65], 0, 0.0),
-                (BATCH, t_serve, 16, 16, 128, [mid] * BATCH, 0, 0.0)):
+                (BATCH, t_serve, 16, 16, 128, [mid] * BATCH, 0, 0.0),
+                # whisper-base's cross cache (every frame valid, a ragged
+                # last split) and self cache (prompt + new tokens);
+                # phi-3-vision's cache of 1088 slots at lengths past it, as
+                # the reference's clamped write leaves them (its kernel
+                # and plain version attend all T).
+                (BATCH, WHISPER_FRAMES, 8, 8, 64, [WHISPER_FRAMES] * BATCH, 0, 0.0),
+                (BATCH, WHISPER_T, 8, 8, 64, [WHISPER_T - 1, 100, 65, WHISPER_T], 0, 0.0),
+                (BATCH, PHI_SEQ, 32, 32, 96, [PHI_SEQ + 1, PHI_SEQ + 12, PHI_SEQ + 1,
+                                              PHI_SEQ], 0, 0.0)):
             q, k, v = rnd(b, 1, h, d, dtype=dtype), rnd(b, t, kv, d, dtype=dtype), \
                 rnd(b, t, kv, d, dtype=dtype)
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -428,15 +514,21 @@ def check_kernels(port):
             require(all(float(out[i].abs().max()) == 0 for i, n in enumerate(lens) if n == 0),
                     "flash_decode: a zero length must give zeros")
     timings = []
-    n = mid  # the mid-generation cache length
-    for b, t, h, kv, d in ((BATCH, t_serve, 32, 4, 64), (BATCH, t_serve, 32, 32, 80),
-                           (BATCH, t_serve, 16, 16, 128)):
+    # The mid-generation cache length of each served shape; whisper-base's
+    # cross cache is read whole, phi-3-vision's at a length past its T.
+    for b, t, h, kv, d, length in (
+            (BATCH, t_serve, 32, 4, 64, mid), (BATCH, t_serve, 32, 32, 80, mid),
+            (BATCH, t_serve, 16, 16, 128, mid),
+            (BATCH, WHISPER_FRAMES, 8, 8, 64, WHISPER_FRAMES),
+            (BATCH, WHISPER_T, 8, 8, 64, WHISPER_T - WHISPER_NEW // 2),
+            (BATCH, PHI_SEQ, 32, 32, 96, PHI_SEQ + NEW_TOKENS // 2)):
         q, k, v = rnd(b, 1, h, d, dtype=dt), rnd(b, t, kv, d, dtype=dt), rnd(b, t, kv, d, dtype=dt)
-        lengths = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        lengths = torch.full((b,), length, dtype=torch.int32, device="cuda")
+        n = min(length, t)
         read = 2 * b * n * kv * d * k.element_size()  # the K and V rows below the length
         qt, kt, vt = q.transpose(1, 2), k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
         timings.append(timing(
-            [b, t, h, kv, d, n], lambda: ops.flash_decode(q, k, v, lengths),
+            [b, t, h, kv, d, length], lambda: ops.flash_decode(q, k, v, lengths),
             lambda: da.decode_attention_plain(q, k, v, lengths),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
             flops=4 * b * h * d * n, nbytes=read + 2 * nbytes(q) + nbytes(lengths),
@@ -537,38 +629,54 @@ def logits_close(name, got, want, dtype, tol=None):
             f"{name}: greedy tokens differ where the margin exceeds the tolerance")
 
 
-def expected_launches(per_prefill):
+def expected_launches(per_prefill, per_step=None):
     """Launches of one prefill and of one decode step, from a phase's
-    per-prefill counts."""
+    per-prefill counts (and per-step ones, where they do not follow)."""
     prefill = dict(per_prefill, flash_decode=0)
-    step = {"fused_rmsnorm": per_prefill["fused_rmsnorm"], "flash_attention": 0,
-            "flash_decode": per_prefill["flash_attention"], "ssd_chunk_dual": 0}
+    step = per_step or {"fused_rmsnorm": per_prefill["fused_rmsnorm"], "flash_attention": 0,
+                        "flash_decode": per_prefill["flash_attention"], "ssd_chunk_dual": 0}
     return prefill, step
 
 
+def serve_frontend(cfg, batch):
+    """A seeded frontend for an audio or vlm model: (batch, frontend_len,
+    d_model), N(0, 0.02) in bf16 on the card; None for the others."""
+    if cfg.frontend == "none":
+        return None
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return (torch.randn(batch, cfg.frontend_len, cfg.d_model, generator=gen, device="cuda")
+            * 0.02).to(torch.bfloat16)
+
+
 def serve(port, device_name, phase):
-    """One serve phase (an entry of PHASES): its requests of PROMPT_LEN
-    random tokens at batch BATCH on its model at full width and depth.
-    Returns the summary and the kernel launches of that run."""
+    """One serve phase (an entry of PHASES): its requests of PROMPT_LEN (or
+    its ``prompt_len``) random tokens at batch BATCH on its model at full
+    width and depth, with its seeded frontend. Returns the summary and the
+    kernel launches of that run."""
     cfg_mod, models, serving, ops = port["configs"], port["models"], port["serving"], port["ops"]
     arch, requests, new_tokens = phase["arch"], phase["requests"], phase["new_tokens"]
+    prompt_len = phase.get("prompt_len", PROMPT_LEN)
     cfg = cfg_mod.get_config(arch)
-    require((cfg.n_layers, cfg.d_model) == (phase["layers"], phase["d_model"]),
+    require((cfg.n_layers, cfg.d_model, cfg.frontend_len)
+            == (phase["layers"], phase["d_model"], phase.get("frontend", 0)),
             f"{arch} at full width and depth")
+    frontend = serve_frontend(cfg, BATCH)
     model = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                                device="cuda")
     n_params = sum(p.numel() for p in model.parameters())
     engine = serving.ServeEngine(cfg, model, batch_size=BATCH, device="cuda")
     require(engine.run.attention_impl == "flash", "the engine defaults to the kernels")
     tok_gen = torch.Generator().manual_seed(SEED)
-    prompts = torch.randint(0, cfg.vocab, (requests, PROMPT_LEN), generator=tok_gen).tolist()
+    prompts = torch.randint(0, cfg.vocab, (requests, prompt_len), generator=tok_gen).tolist()
 
-    engine.generate(prompts[:1], max_new_tokens=2)  # warm-up: cuBLAS, allocator
+    # Warm-up: cuBLAS, allocator.
+    engine.generate(prompts[:1], max_new_tokens=2,
+                    frontend=None if frontend is None else frontend[:1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    results = engine.generate(prompts, max_new_tokens=new_tokens)
+    results = engine.generate(prompts, max_new_tokens=new_tokens, frontend=frontend)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -578,7 +686,7 @@ def serve(port, device_name, phase):
     require(all(len(r.tokens) == new_tokens and all(0 <= x < cfg.vocab for x in r.tokens)
                 for r in results), f"{new_tokens} in-vocabulary tokens per request")
     waves, steps = requests // BATCH, new_tokens - 1
-    per_prefill, per_step = expected_launches(phase["per_prefill"])
+    per_prefill, per_step = expected_launches(phase["per_prefill"], phase.get("per_step"))
     expect = {k: waves * (per_prefill[k] + steps * per_step[k]) for k in per_prefill}
     log(json.dumps({"model": arch, "launches": launches, "expected": expect,
                     "per_prefill": per_prefill, "per_decode_step": per_step}))
@@ -589,11 +697,12 @@ def serve(port, device_name, phase):
     # Per-phase times of one wave, on the same prompts.
     run = engine.run
     tokens = torch.tensor(prompts[:BATCH], device="cuda")
-    max_len = PROMPT_LEN + new_tokens
+    max_len = prompt_len + new_tokens
+    kw = dict(max_len=max_len, frontend=frontend)
     with torch.inference_mode():
-        _, prefill_ms = time_ms(lambda: models.prefill(model, cfg, run, tokens, max_len=max_len),
+        _, prefill_ms = time_ms(lambda: models.prefill(model, cfg, run, tokens, **kw),
                                 reps=5, warmup=1)
-        logits, cache = models.prefill(model, cfg, run, tokens, max_len=max_len)
+        logits, cache = models.prefill(model, cfg, run, tokens, **kw)
         cur = logits[:, -1].argmax(-1)[:, None]
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -606,14 +715,15 @@ def serve(port, device_name, phase):
         decode_ms = start.elapsed_time(end) / steps
 
     prefill_busy, prefill_top = device_time(
-        lambda: models.prefill(model, cfg, run, tokens, max_len=max_len), 1)
+        lambda: models.prefill(model, cfg, run, tokens, **kw), 1)
     with torch.inference_mode():
         decode_busy, decode_top = device_time(
             lambda: models.decode_step(model, cfg, run, cache, cur), 8)
 
     summary = {"model": arch, "family": cfg.family, "layers": cfg.n_layers,
                "d_model": cfg.d_model, "params": n_params, "requests": requests,
-               "prompt_len": PROMPT_LEN, "batch": BATCH, "new_tokens": new_tokens,
+               "prompt_len": prompt_len, "frontend_len": cfg.frontend_len, "batch": BATCH,
+               "new_tokens": new_tokens,
                "wall_s": wall, "tok_per_s": requests * new_tokens / wall,
                "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
                "decode_tok_per_s": BATCH / decode_ms * 1e3,
@@ -632,21 +742,24 @@ def serve(port, device_name, phase):
 
     # Logits of three runs per path: prefill on the prompt less its last
     # token (511 tokens: the SSD pads its last chunk), one decode step on
-    # that token, and prefill on the whole prompt. Paths: the kernels in
-    # bf16 and in f32, and the plain path (eager layers, no kernel) in bf16
-    # and in f32, on one set of weights (the f32 model is the bf16 one
+    # that token (the cache sized to hold it: a vlm's counts its patches),
+    # and prefill on the whole prompt. Paths: the kernels in bf16 and in
+    # f32, and the plain path (eager layers, no kernel) in bf16 and in f32,
+    # on one set of weights and frontend (the f32 model is the bf16 one
     # upcast, so f32 holds it exactly). TF32 is off.
     del engine, results, cache
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     plain_run = cfg_mod.RunConfig(attention_impl="chunked", attention_chunk=64)
     model32 = copy.deepcopy(model).float()
+    step_len = prompt_len + (cfg.frontend_len if cfg.family == "vlm" else 0)
 
     def three(m, r):
+        fe = None if frontend is None else frontend.to(m.embed.dtype)
         with torch.inference_mode():
-            pre, c = models.prefill(m, cfg, r, tokens[:, :-1], max_len=PROMPT_LEN)
+            pre, c = models.prefill(m, cfg, r, tokens[:, :-1], max_len=step_len, frontend=fe)
             dec, _ = models.decode_step(m, cfg, r, c, tokens[:, -1:])
-            full, _ = models.prefill(m, cfg, r, tokens)
+            full, _ = models.prefill(m, cfg, r, tokens, frontend=fe)
         return pre[:, 0], dec[:, 0], full[:, -1]
 
     # Teacher-forced decode on the kernel path: the step's logits equal the
@@ -1530,9 +1643,14 @@ def ibench(port):
 TRAIN_ARCH, TRAIN_STEPS = "tinyllama-1.1b", 8
 # (b) and (e): each trained family at full width, cut to a depth for the f32
 # gradient check: zamba2-2.7b to 2 groups of 6 Mamba layers and a shared
-# block each, deepseek-moe-16b to its dense layer and 3 MoE layers.
+# block each, deepseek-moe-16b to its dense layer and 3 MoE layers;
+# whisper-base whole (6 encoder and 6 decoder layers).
 CHECK_LAYERS = {"tinyllama-1.1b": 4, "mamba2-130m": 4, "zamba2-2.7b": 12,
-                "deepseek-moe-16b": 4}
+                "deepseek-moe-16b": 4, "whisper-base": 6, "phi-3-vision-4.2b": 4}
+# The pipeline's sequence of a train step (PROMPT_LEN unless named): a vlm's
+# counts its patches (DataPipeline takes them off the tokens), an audio
+# model's 1500 frames come beside it.
+TRAIN_SEQ = {"whisper-base": WHISPER_CONTEXT, "phi-3-vision-4.2b": PHI_SEQ}
 # (c) and (f): train_loop on (c)'s schedule, at full width and depth but for
 # deepseek-moe-16b, cut to its dense layer and 3 MoE layers (2.3 B
 # parameters, 27 GB with gradients and moments) for a few steps whose loss
@@ -1542,10 +1660,24 @@ CHECK_LAYERS = {"tinyllama-1.1b": 4, "mamba2-130m": 4, "zamba2-2.7b": 12,
 # not checked: on this schedule its step loss fell for 6 of 6 seeds on the
 # H100, but its seed-0 held-out loss went from 10.970123 to 10.970534
 # (``train_schedules`` prints the spread over seeds; PERF.md §6).
+# phi-3-vision-4.2b (4 x 1088 positions, 576 of them patches) gates on
+# the step loss (on the H100 it fell for 3 of 3 seeds, and so did the
+# held-out loss). whisper-base (4 x 448 tokens beside 1500 frames) does not
+# learn on this schedule: its step loss fell for 2 of 6 seeds over 8 steps
+# at lr 1e-3 (3 of 6 at 3e-4) and for 1 of 6 over 24 steps, inside a
+# batch-to-batch spread of 0.03 (``train_schedules``; PERF.md §6), because
+# the reference adds unit-scale sinusoids to N(0, 0.02) token and frame
+# embeddings, so the first steps all but cannot see the tokens. Its run's
+# losses are recorded, and its gate ("batch") is a batch's loss falling
+# under REPEAT_STEPS steps on that batch: descent through the kernels'
+# gradients on the card.
+REPEAT_STEPS = 3
 TRAIN_RUNS = (dict(arch="tinyllama-1.1b", checkpoint=True, falls=("run", "held_out")),
               dict(arch="mamba2-130m", checkpoint=True, falls=("run",)),
               dict(arch="zamba2-2.7b", falls=("run", "held_out")),
-              dict(arch="deepseek-moe-16b", layers=4, steps=4, falls=()))
+              dict(arch="deepseek-moe-16b", layers=4, steps=4, falls=()),
+              dict(arch="whisper-base", falls=("batch",)),
+              dict(arch="phi-3-vision-4.2b", falls=("run",)))
 # (d): the Function of K4 at the SSD's training shapes (B, NC, H, Q, P, N).
 SSD_TRAIN_SHAPES = {"zamba2-2.7b": (BATCH, 2, 80, 256, 64, 64),
                     "mamba2-130m": (BATCH, 2, 24, 256, 64, 128)}
@@ -1613,19 +1745,27 @@ def train_functions(port):
             want = torch.autograd.grad(rms.rmsnorm_rows_plain(x2, w2), (x2, w2), g)
             grads += compare_grads("FusedRMSNorm", [rows, d], got, want, GRAD_TOL[dtype])
     # K2 at the slice's shape, at D 80, with a window, a softcap, a ragged S
-    # and a query offset. (b, s, t, h, kv, d, window, q_offset, softcap)
+    # and a query offset; without the causal mask at whisper-base's training
+    # shapes (the encoder over 1500 frames, the cross-attention of 448
+    # tokens against them) and a ragged S != T; phi-3-vision's (576 patches
+    # + 512 tokens, D 96). (b, s, t, h, kv, d, window, q_offset, softcap[,
+    # causal])
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s, t, h, kv, d, win, qoff, cap in (
+        for b, s, t, h, kv, d, win, qoff, cap, *causal in (
                 (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 4, 64, 0, 0, 0.0),
                 (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 32, 80, 0, 0, 0.0),
                 (2, 300, 300, 8, 2, 64, 64, 0, 0.0), (2, 100, 100, 32, 4, 64, 0, 0, 30.0),
-                (3, 77, 77, 32, 4, 64, 0, 0, 0.0), (2, 40, 130, 8, 8, 80, 33, 90, 30.0)):
+                (3, 77, 77, 32, 4, 64, 0, 0, 0.0), (2, 40, 130, 8, 8, 80, 33, 90, 30.0),
+                (BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 8, 8, 64, 0, 0, 0.0, False),
+                (BATCH, WHISPER_CONTEXT, WHISPER_FRAMES, 8, 8, 64, 0, 0, 0.0, False),
+                (2, 37, 130, 8, 2, 96, 0, 0, 0.0, False),
+                (BATCH, PHI_SEQ, PHI_SEQ, 32, 32, 96, 0, 0, 0.0)):
             q = rnd(b, s, h, d, dtype=dtype).requires_grad_()
             k = rnd(b, t, kv, d, dtype=dtype).requires_grad_()
             v = rnd(b, t, kv, d, dtype=dtype).requires_grad_()
             g = rnd(b, s, h, d, dtype=dtype)
-            kw = dict(causal=True, window=win, q_offset=qoff, softcap=cap)
-            shape = [b, s, t, h, kv, d, win, qoff, cap]
+            kw = dict(causal=causal == [], window=win, q_offset=qoff, softcap=cap)
+            shape = [b, s, t, h, kv, d, win, qoff, cap, kw["causal"]]
             out = ops.flash_attention(q, k, v, **kw)
             require(type(out.grad_fn).__name__ == "FlashAttentionBackward",
                     "flash_attention goes through its Function when an input requires grad")
@@ -1672,6 +1812,33 @@ def train_functions(port):
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     del outs, x, w, q, k, v, g, qt, kt, vt
     torch.cuda.empty_cache()
+    # whisper-base's encoder and cross-attention, and phi-3-vision's
+    # attention, at their training shapes: every (query, key) pair without
+    # the mask.
+    for label, (b, s, t, h, kv, d, causal) in (
+            ("whisper encoder", (BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 8, 8, 64, False)),
+            ("whisper cross", (BATCH, WHISPER_CONTEXT, WHISPER_FRAMES, 8, 8, 64, False)),
+            ("phi-3-vision", (BATCH, PHI_SEQ, PHI_SEQ, 32, 32, 96, True))):
+        q = rnd(b, s, h, d, dtype=torch.bfloat16).requires_grad_()
+        k = rnd(b, t, kv, d, dtype=torch.bfloat16).requires_grad_()
+        v = rnd(b, t, kv, d, dtype=torch.bfloat16).requires_grad_()
+        g = rnd(b, s, h, d, dtype=torch.bfloat16)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        outs = (ops.flash_attention(q, k, v, causal=causal),
+                layers.naive_attention(q, k, v, causal=causal),
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                               enable_gqa=True).transpose(1, 2))
+        t_ms = [time_ms(lambda o=o: torch.autograd.grad(o, (q, k, v), g, retain_graph=True),
+                        reps=5) for o in outs]
+        pairs = s * (s + 1) // 2 if causal else s * t
+        t_ops = 10 * b * h * d * pairs / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes(q, k, v, q, q, q, k, v) / PEAK_BYTES * 1e3
+        timings[f"FlashAttention.backward {label}"] = {
+            "shape": [b, s, t, h, kv, d, causal], "ms": t_ms[0][0], "plain_ms": t_ms[1][0],
+            "library_ms": t_ms[2][0], "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "clocks": clocks()}
+        del outs, q, k, v, g, qt, kt, vt
+        torch.cuda.empty_cache()
     log(json.dumps({"train_functions": {"checks": checks, "grads": grads,
                                         "backward_timings": timings}}))
     return timings
@@ -1749,17 +1916,34 @@ def ssd_backward(port):
 def step_launches(cfg, passes):
     """K1, K2 and K4 launches of one train step's forward passes over the
     layers (1 without remat; 2 under it, where each layer's or hybrid
-    group's forward runs again in backward), plus the final norm's K1: K1
-    at both norms of every layer (a Mamba layer's norm1 and gated norm) and
-    of every shared-block invocation, K2 at every attention layer or
-    invocation, K4 at every Mamba layer."""
+    group's forward runs again in backward), plus the final norm's K1 (and
+    an audio model's enc_final_norm): K1 at both norms of every layer (a
+    Mamba layer's norm1 and gated norm) and of every shared-block
+    invocation and at 3 of an audio decoder layer, K2 at every attention
+    layer or invocation and twice in an audio decoder layer (self and
+    cross), K4 at every Mamba layer."""
     L = cfg.n_layers
     groups = L // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
     attention = {"ssm": 0, "hybrid": groups}.get(cfg.family, L)
     mamba = L if cfg.family in ("ssm", "hybrid") else 0
-    return {"fused_rmsnorm": passes * (2 * L + 2 * groups) + 1,
+    norms, outside = 2 * L + 2 * groups, 1
+    if cfg.family == "audio":
+        E = cfg.n_encoder_layers
+        norms, attention, outside = 2 * E + 3 * L, E + 2 * L, 2
+    return {"fused_rmsnorm": passes * norms + outside,
             "flash_attention": passes * attention, "flash_decode": 0,
             "ssd_chunk_dual": passes * mamba}
+
+
+def train_batch(data, cfg, step, seq=None):
+    """The pipeline's batch of ``step`` on the card: tokens of ``seq``
+    (TRAIN_SEQ's, less a vlm's patches) and an audio or vlm model's
+    frontend."""
+    seq = seq or TRAIN_SEQ.get(cfg.name, PROMPT_LEN)
+    if cfg.frontend == "vision_stub":
+        seq -= cfg.frontend_len
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in data.make_batch(cfg, BATCH, seq, SEED, step).items()}
 
 
 def path_gradients(port, arch):
@@ -1780,8 +1964,7 @@ def path_gradients(port, arch):
                                device="cuda")
     for p in model.parameters():
         p.requires_grad_(True)
-    batch = {k: torch.from_numpy(v).cuda()
-             for k, v in data.make_batch(cfg, BATCH, PROMPT_LEN, SEED, 0).items()}
+    batch = train_batch(data, full, 0)
     results = {}
     for impl in ("flash", "chunked"):
         run = cfg_mod.RunConfig(attention_impl=impl, attention_chunk=64, remat="none",
@@ -1825,18 +2008,27 @@ def path_gradients(port, arch):
     return summary
 
 
-def step_bound(cfg, model, tokens, b, s):
-    """The least time of one train step, counted from the config: the
-    matmul FLOPs (6 per weight and token: the embedding lookup aside, a
-    tied embedding counted once as the head; for moe the active weights,
-    top-k and shared experts; for hybrid the shared block once per
-    invocation), plus causal attention forward and backward, at the bf16
+def step_bound(cfg, model, b, s):
+    """The least time of one train step on b x s tokens, counted from the
+    config: the matmul FLOPs (6 per weight and position it sees: the
+    embedding lookup aside, a tied embedding counted once as the head; for
+    moe the active weights, top-k and shared experts; for hybrid the shared
+    block once per invocation; a vlm's layers also see its F patches, its
+    head only the s tokens; an audio model's encoder and cross K/V weights
+    see its F frames), plus attention forward and backward (causal pairs,
+    every pair of the audio encoder and cross-attention), at the bf16
     tensor-core peak, then AdamW's bytes (22 per parameter: bf16 p and g
     read, f32 m and v read, p, m and v written) at the memory rate; the
     update needs every gradient, so the two add. The SSD's intra-chunk
     products are left out (a lower bound)."""
-    n_params = sum(p.numel() for p in model.parameters())
-    d = cfg.d_model
+    def count(params):
+        return sum(p.numel() for p in params)
+
+    def causal(n):
+        return n * (n + 1) // 2
+
+    n_params = count(model.parameters())
+    d, f = cfg.d_model, cfg.frontend_len
     if cfg.family == "moe":
         weights = cfg.active_param_count() - cfg.vocab * d
     else:
@@ -1846,9 +2038,18 @@ def step_bound(cfg, model, tokens, b, s):
         shared = [*model.shared_attn.parameters(), *model.shared_mlp.parameters()]
         weights += (groups - 1) * sum(p.numel() for p in shared)
     attention_layers = {"ssm": 0, "hybrid": groups}.get(cfg.family, cfg.n_layers)
-    pairs = s * (s + 1) // 2
-    attn = 12 * attention_layers * b * cfg.n_heads * pairs * cfg.d_head
-    flops = 6 * weights * tokens + attn
+    matmul = 6 * weights * b * s
+    pairs = attention_layers * causal(s)
+    if cfg.family == "vlm":
+        matmul += 6 * (weights - cfg.padded_vocab * d) * b * f
+        pairs = attention_layers * causal(f + s)
+    elif cfg.family == "audio":
+        framed = count(model.enc_layers.parameters()) + count(
+            p for lp in model.layers for p in (lp.cross.cross_wk, lp.cross.cross_wv))
+        matmul += 6 * framed * b * (f - s)
+        pairs = cfg.n_encoder_layers * f * f + cfg.n_layers * (causal(s) + s * f)
+    attn = 12 * b * cfg.n_heads * pairs * cfg.d_head
+    flops = matmul + attn
     nbytes_opt = 22 * n_params
     return {"flops": flops, "flops_ms": flops / PEAK_BF16_FLOPS * 1e3,
             "adamw_bytes": nbytes_opt, "adamw_ms": nbytes_opt / PEAK_BYTES * 1e3,
@@ -1866,6 +2067,7 @@ def train_run(port, spec):
     arch, steps = spec["arch"], spec.get("steps", TRAIN_STEPS)
     full = cfg_mod.get_config(arch)
     cfg = dataclasses.replace(full, n_layers=spec.get("layers", full.n_layers))
+    seq = TRAIN_SEQ.get(arch, PROMPT_LEN)
     require(cfg.dtype == "bfloat16", f"{arch} in bf16")
     run = cfg_mod.RunConfig(attention_impl="flash", attention_chunk=64, remat="full",
                             zero=False, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
@@ -1874,8 +2076,7 @@ def train_run(port, spec):
     # the seed-0 initial weights (those train_loop starts from) and of the
     # trained ones: free of the batch-to-batch spread of the step losses.
     models, data_mod = port["models"], port["data"]
-    held_out = {k: torch.from_numpy(v).cuda()
-                for k, v in data_mod.make_batch(cfg, BATCH, PROMPT_LEN, SEED, 1000).items()}
+    held_out = train_batch(data_mod, cfg, 1000, seq)
     with torch.no_grad():
         initial = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                                      device="cuda")
@@ -1887,8 +2088,7 @@ def train_run(port, spec):
     ops.reset_launches()
     t0 = time.perf_counter()
     state, logged = loop_mod.train_loop(cfg, run, steps=steps, global_batch=BATCH,
-                                        seq_len=PROMPT_LEN, seed=SEED, log_every=1,
-                                        device="cuda")
+                                        seq_len=seq, seed=SEED, log_every=1, device="cuda")
     loop_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     # Under remat each layer's (hybrid: each group's) forward runs again in
@@ -1917,8 +2117,7 @@ def train_run(port, spec):
     params = list(state.params.parameters())
 
     def batch_at(step):
-        return {k: torch.from_numpy(v).cuda()
-                for k, v in data.make_batch(cfg, BATCH, PROMPT_LEN, SEED, step).items()}
+        return train_batch(data, cfg, step, seq)
 
     step_ms, fwd_ms, bwd_ms, aux = [], [], [], []
     for i in range(3):
@@ -1951,18 +2150,29 @@ def train_run(port, spec):
     busy, top = device_time(one_step, 1, inference=False)
     state = holder["state"]
     peak = torch.cuda.max_memory_allocated()
+    repeated = None
+    if "batch" in spec["falls"]:
+        probe = batch_at(2000)
+        repeated = [float(step_mod.eval_step(state, probe, cfg, run)["loss"])]
+        for _ in range(REPEAT_STEPS):
+            state, _ = step_fn(state, probe)
+            repeated.append(float(step_mod.eval_step(state, probe, cfg, run)["loss"]))
+        require(repeated[-1] < repeated[0],
+                f"{arch}: a batch's loss falls under {REPEAT_STEPS} steps on it: {repeated}")
     n_params = sum(p.numel() for p in params)
-    tokens = BATCH * PROMPT_LEN
+    tokens = BATCH * seq  # as train_loop counts them: a vlm's patches among them
     step = statistics.median(step_ms)
     summary = {"model": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-               "params": n_params, "dtype": cfg.dtype, "batch": BATCH, "seq_len": PROMPT_LEN,
+               "params": n_params, "dtype": cfg.dtype, "batch": BATCH, "seq_len": seq,
+               "frontend_len": cfg.frontend_len,
                "remat": run.remat, "losses": losses, "held_out_loss": [held_before, held_after],
+               "repeated_batch_loss": repeated,
                "train_loop_s": loop_s, "step_ms": step_ms, "aux": aux,
                "tokens_per_s": tokens / step * 1e3, "forward_ms": fwd_ms,
                "backward_ms": bwd_ms, "step_device_busy_ms": busy,
                "step_device_idle_share": None if busy is None else 1 - busy / step,
                "step_top_kernels_ms": top, "max_memory_allocated": peak,
-               "bound": step_bound(cfg, state.params, tokens, BATCH, PROMPT_LEN)}
+               "bound": step_bound(cfg, state.params, BATCH, batch["tokens"].shape[1])}
     log(json.dumps({"train": summary}))
     if spec.get("checkpoint"):
         summary["checkpoint"] = checkpoint_round_trip(port, cfg, state, step_fn, batch_at)
@@ -2060,31 +2270,31 @@ def training(port):
     return timings, summaries, launches, seconds
 
 
-def train_schedules(port, arch=TRAIN_ARCH, lrs=(3e-4, TRAIN_LR), seeds=(0, 1, 2, 3, 4, 5)):
+def train_schedules(port, arch=TRAIN_ARCH, lrs=(3e-4, TRAIN_LR), seeds=(0, 1, 2, 3, 4, 5),
+                    steps=TRAIN_STEPS):
     """Not a phase of ``main``: the spread that (c)'s and (f)'s loss checks
     sit in, for ``arch`` at full width and depth. Prints the seed-0 initial
-    weights' loss on the 8 batches the run trains on and on the held-out
-    batch, and the first and last step losses of its ``train_loop`` (same
-    schedule) at each learning rate and seed, with the held-out loss after
-    it. Alone: ``python3 -c "import sys; sys.path[:0] = ['.'];
-    import chip_smoke as cs; p = cs.port_modules(); p['build'].build();
-    cs.train_schedules(p)"`` (``arch="zamba2-2.7b"`` for another model)."""
+    weights' loss on the ``steps`` batches the run trains on and on the
+    held-out batch, and the first and last step losses of its
+    ``train_loop`` (same schedule over ``steps`` steps) at each learning
+    rate and seed, with the held-out loss after it. Alone: ``python3 -c
+    "import sys; sys.path[:0] = ['.']; import chip_smoke as cs; p =
+    cs.port_modules(); p['build'].build(); cs.train_schedules(p)"``
+    (``arch="zamba2-2.7b"`` for another model)."""
     cfg_mod, models, step_mod, loop_mod, data = (port["configs"], port["models"],
                                                  port["train_step"], port["train_loop"],
                                                  port["data"])
     cfg = cfg_mod.get_config(arch)
+    seq = TRAIN_SEQ.get(arch, PROMPT_LEN)
     run = cfg_mod.RunConfig(attention_impl="flash", attention_chunk=64, remat="full",
                             zero=False, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-                            total_steps=TRAIN_STEPS)
+                            total_steps=steps)
     with torch.no_grad():
         initial = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                                      device="cuda")
-        losses = [float(step_mod._loss_fn(initial, cfg, run, {
-            k: torch.from_numpy(v).cuda()
-            for k, v in data.make_batch(cfg, BATCH, PROMPT_LEN, SEED, i).items()})[1]["loss"])
-            for i in range(TRAIN_STEPS)]
-        held_out = {k: torch.from_numpy(v).cuda()
-                    for k, v in data.make_batch(cfg, BATCH, PROMPT_LEN, SEED, 1000).items()}
+        losses = [float(step_mod._loss_fn(initial, cfg, run, train_batch(data, cfg, i, seq))[1][
+            "loss"]) for i in range(steps)]
+        held_out = train_batch(data, cfg, 1000, seq)
         held_before = float(step_mod._loss_fn(initial, cfg, run, held_out)[1]["loss"])
     del initial
     log(json.dumps({"model": arch, "initial_weights_batch_losses": losses,
@@ -2093,13 +2303,12 @@ def train_schedules(port, arch=TRAIN_ARCH, lrs=(3e-4, TRAIN_LR), seeds=(0, 1, 2,
     for lr in lrs:
         for seed in seeds:
             state, logged = loop_mod.train_loop(
-                cfg, dataclasses.replace(run, learning_rate=lr), steps=TRAIN_STEPS,
-                global_batch=BATCH, seq_len=PROMPT_LEN, seed=seed, log_every=TRAIN_STEPS,
-                device="cuda")
+                cfg, dataclasses.replace(run, learning_rate=lr), steps=steps,
+                global_batch=BATCH, seq_len=seq, seed=seed, log_every=steps, device="cuda")
             first, last = logged[0]["loss"], logged[-1]["loss"]
             held = float(step_mod.eval_step(state, held_out, cfg, run)["loss"])
-            rows.append({"model": arch, "lr": lr, "seed": seed, "first": first, "last": last,
-                         "falls": last < first, "held_out_after": held})
+            rows.append({"model": arch, "lr": lr, "seed": seed, "steps": steps, "first": first,
+                         "last": last, "falls": last < first, "held_out_after": held})
             log(json.dumps({"train_schedule": rows[-1]}))
             del state
             torch.cuda.empty_cache()

@@ -1,12 +1,14 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id>``.
 
-Randomly initializes a model of the dense, moe, ssm or hybrid family (e.g.
-``--arch tinyllama-1.1b``, ``--arch deepseek-moe-16b``, ``--arch
-mamba2-130m``, ``--arch zamba2-2.7b``;
+Randomly initializes a model of any family (e.g. ``--arch tinyllama-1.1b``,
+``--arch deepseek-moe-16b``, ``--arch mamba2-130m``, ``--arch
+zamba2-2.7b``, ``--arch whisper-base``, ``--arch phi-3-vision-4.2b``;
 weights from a ``torch.Generator`` with seed 0; the tiny variant unless
 ``--no-tiny``) and serves a batch of synthetic requests through the
 continuous-batching engine, on the CUDA device unless ``--device cpu`` is
-given. Prints the tokens per second and the device it ran on.
+given. An audio or vlm model gets the reference's stub frontend, ones of
+shape (batch, frontend_len, d_model) in bf16. Prints the tokens per second
+and the device it ran on.
 
 ``--mode analyze`` serves *kernel-analysis* traffic instead, through the
 versioned ``AnalysisService`` request/response API, as
@@ -204,8 +206,14 @@ def main(argv=None) -> None:
     prompts = [rng.integers(0, cfg.vocab, size=args.prompt_len).tolist()
                for _ in range(args.requests)]
 
+    frontend = None
+    if cfg.frontend != "none":
+        frontend = torch.ones((args.batch_size, cfg.frontend_len, cfg.d_model),
+                              dtype=torch.bfloat16, device=device)
+
     t0 = time.perf_counter()
-    results = engine.generate(prompts, max_new_tokens=args.max_new_tokens)
+    results = engine.generate(prompts, max_new_tokens=args.max_new_tokens,
+                              frontend=frontend)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

@@ -6,9 +6,11 @@ checkpointing and heartbeat/straggler monitoring. One device and no mesh
 (sharding is ROADMAP item 9). It runs on the CUDA device unless ``--device
 cpu`` is given, through the kernel-backed ops (``attention_impl="flash"``:
 K1 at every norm, K2 at every attention layer, K4 at every Mamba layer); it
-trains the tiny variant unless ``--no-tiny``. The dense, moe, ssm and hybrid
-families train (e.g. ``--arch tinyllama-1.1b``, ``--arch deepseek-moe-16b``,
-``--arch mamba2-130m``, ``--arch zamba2-2.7b``); audio and vlm do not yet.
+trains the tiny variant unless ``--no-tiny``. Every family trains (e.g.
+``--arch tinyllama-1.1b``, ``--arch deepseek-moe-16b``, ``--arch
+mamba2-130m``, ``--arch zamba2-2.7b``, ``--arch whisper-base``, ``--arch
+phi-3-vision-4.2b``; an audio or vlm model on the pipeline's seeded frame or
+patch embeddings, a vlm's ``--seq-len`` counting its patches).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Reference weights into the port and back: ``repro.models.init_params``
 output, as numpy arrays, becomes a
-:class:`~repro_torch.models.transformer.Transformer` of the dense, moe, ssm
-or hybrid family (``params_from_jax``), and the port's named tensors (its
+:class:`~repro_torch.models.transformer.Transformer` of any family
+(``params_from_jax``), and the port's named tensors (its
 parameters, or the optimizer moments beside them) become a tree in the
 reference's layout (``reference_tree``), which checkpoints use.
 
@@ -44,16 +44,24 @@ def named_leaves(np_tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, Any]
     if not cfg.tie_embeddings:
         state["lm_head"] = np_tree["lm_head"]
     layers = np_tree["layers"]
-    if cfg.family in ("dense", "moe"):
-        stacks = [("layers", layers, ("attn", "moe" if cfg.family == "moe" else "mlp"))]
-        if cfg.family == "moe" and cfg.moe_first_dense:
-            stacks.append(("dense_layers", np_tree["dense_layers"], ("attn", "mlp")))
-        for prefix, tree, groups in stacks:
+    if cfg.family in ("dense", "vlm", "moe", "audio"):
+        dense = (("attn", "mlp"), ("norm1", "norm2"))
+        if cfg.family == "moe":
+            stacks = [("layers", layers, ("attn", "moe"), ("norm1", "norm2"))]
+            if cfg.moe_first_dense:
+                stacks.append(("dense_layers", np_tree["dense_layers"], *dense))
+        elif cfg.family == "audio":
+            stacks = [("enc_layers", np_tree["enc_layers"], *dense),
+                      ("layers", layers, ("attn", "mlp", "cross"), ("norm1", "norm2", "norm3"))]
+            state["enc_final_norm"] = np_tree["enc_final_norm"]
+        else:
+            stacks = [("layers", layers, *dense)]
+        for prefix, tree, groups, norms in stacks:
             for group in groups:
                 for name, stacked in tree[group].items():
                     for i, leaf in enumerate(_leaf(stacked)):
                         state[f"{prefix}.{i}.{group}.{name}"] = leaf
-            for name in ("norm1", "norm2"):
+            for name in norms:
                 for i, leaf in enumerate(_leaf(tree[name])):
                     state[f"{prefix}.{i}.{name}"] = leaf
         return state
@@ -79,7 +87,7 @@ def named_leaves(np_tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, Any]
 
 
 # Parameter-name prefixes of per-layer submodules, which the reference stacks.
-STACKED = ("layers", "dense_layers")
+STACKED = ("layers", "dense_layers", "enc_layers")
 
 
 def _put(tree: Dict[str, Any], path: Sequence[str], leaf: Any) -> None:
@@ -94,7 +102,8 @@ def reference_tree(named: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict[
     moments keyed like them) as a nested dict in the reference's layout,
     e.g. ``layers/attn/wq`` (L, d, H*D) for the dense family, the layer
     axes of ``layers`` (and of the moe family's ``dense_layers``) stacked on
-    the tensors' device ((G, every, ...) for hybrid ``layers`` leaves)."""
+    the tensors' device ((G, every, ...) for hybrid ``layers`` leaves), and
+    of the audio family's ``enc_layers``."""
     tree: Dict[str, Any] = {}
     per_layer: Dict[tuple, list] = {}
     for name, t in named.items():
@@ -117,8 +126,12 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig, *,
 
     ``np_tree`` has the reference's keys: embed, final_norm, lm_head (unless
     tied) and
-      * dense: layers/{attn/{wq,wk,wv,wo}, mlp/{wi,wo}, norm1, norm2}, each
-        leaf (L, ...);
+      * dense, vlm: layers/{attn/{wq,wk,wv,wo}, mlp/{wi,wo}, norm1, norm2},
+        each leaf (L, ...);
+      * audio: enc_layers with the dense family's leaves, each
+        (n_encoder_layers, ...), enc_final_norm, and layers/{attn/*, mlp/*,
+        cross/{cross_wq,cross_wk,cross_wv,cross_wo}, norm1, norm2, norm3},
+        each leaf (L, ...);
       * moe: layers/{attn/*, moe/{router,moe_wi,moe_wo,shared_wi,shared_wo},
         norm1, norm2}, each leaf (L - first_dense, ...), and dense_layers
         with the dense family's leaves, each (first_dense, ...);

@@ -84,6 +84,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(length: int, dim: int, device=None, start: int = 0) -> torch.Tensor:
+    """(length, dim) f32 table of positions p = start .. start + length - 1:
+    sin(p * f_i) in column 2i and cos(p * f_i) in column 2i + 1, with
+    f_i = exp(-2i ln(1e4) / dim)."""
+    pos = torch.arange(start, start + length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(1e4) / dim))
+    table = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    table[:, 0::2] = torch.sin(pos * div)
+    table[:, 1::2] = torch.cos(pos * div)
+    return table
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -207,35 +220,46 @@ def attention_block(
     cache_pos: Optional[int] = None,
     causal: bool = True,
     cache_fill: Optional[int] = None,
+    kv_x: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Returns (output, new_kv); ``params`` holds wq, wk, wv, wo (and
     q_norm, k_norm under ``cfg.qk_norm``).
 
-    * prefill: ``new_kv`` is this segment's rope'd (K, V).
+    * prefill: ``new_kv`` is this segment's (K, V), rope'd under
+      ``use_rope``.
     * decode (``kv_cache`` and ``cache_pos`` given): the new token's K/V is
-      written into the cache at ``cache_pos`` in place (the reference returns
-      an updated copy) and ``new_kv`` is the cache. The first
-      ``cache_fill`` slots are attended when it is given (a ring buffer, whose
-      live slots all lie in the window, so the window mask is off), else the
-      first ``cache_pos + S`` under ``cfg.window``.
+      written into the cache in place (the reference returns an updated
+      copy) and ``new_kv`` is the cache. The write starts at ``cache_pos``,
+      clamped to ``T - S`` as the reference's ``dynamic_update_slice``
+      clamps it, so a position past the cache overwrites its last slot. The
+      first ``cache_fill`` slots are attended when it is given (a ring
+      buffer, whose live slots all lie in the window, so the window mask is
+      off), else the first ``cache_pos + S`` under ``cfg.window``.
+    * ``kv_x`` (B,F,d) selects cross-attention: K/V are projected from it,
+      with no rope, and S need not equal F.
     """
     b, s, _ = x.shape
     h, k_heads, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     kernel = uses_kernels(run)
+    kv_src = x if kv_x is None else kv_x
+    t = kv_src.shape[1]
 
     q = (x @ params.wq).reshape(b, s, h, d)
-    kk = (x @ params.wk).reshape(b, s, k_heads, d)
-    vv = (x @ params.wv).reshape(b, s, k_heads, d)
+    kk = (kv_src @ params.wk).reshape(b, t, k_heads, d)
+    vv = (kv_src @ params.wv).reshape(b, t, k_heads, d)
     if cfg.qk_norm:
         q = rms_norm(q, params.q_norm, cfg.norm_eps, kernel=kernel)
         kk = rms_norm(kk, params.k_norm, cfg.norm_eps, kernel=kernel)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    kk = apply_rope(kk, positions, cfg.rope_theta)
+    if use_rope and kv_x is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        kk = apply_rope(kk, positions, cfg.rope_theta)
 
     if kv_cache is not None:
         k_cache, v_cache = kv_cache
-        k_cache[:, cache_pos:cache_pos + s] = kk
-        v_cache[:, cache_pos:cache_pos + s] = vv
+        slot = max(0, min(cache_pos, k_cache.shape[1] - s))
+        k_cache[:, slot:slot + s] = kk
+        v_cache[:, slot:slot + s] = vv
         fill = cache_fill if cache_fill is not None else cache_pos + s
         lengths = torch.full((b,), fill, dtype=torch.int32, device=x.device)
         win = 0 if cache_fill is not None else cfg.window

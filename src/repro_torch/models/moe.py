@@ -5,8 +5,9 @@ Tokens are split into groups (``moe_group_size``, or the largest size that
 divides the token count); each group routes independently with per-group
 expert capacity C = ceil(top_k * S_g * cf / E), earlier tokens winning a
 slot (slot-major, GShard semantics); assignments past capacity are dropped.
-Dispatch and combine are one-hot einsums (``"einsum"``) or index gathers
-(``"gather"``), with the same result. Supports DeepSeek-MoE's fine-grained
+Dispatch and combine are index gathers (``"gather"``) or, for any other
+mode, as in the reference, one-hot einsums (``"einsum"``), with the same
+result. Supports DeepSeek-MoE's fine-grained
 routing (64 routed experts, top 6, plus 2 shared experts) and
 Phi-3.5-MoE's (16 routed, top 2).
 
@@ -149,14 +150,12 @@ def moe_block(params: MoE, x: torch.Tensor, cfg,
 
     if dispatch_mode == "gather":
         yg, aux = _moe_gather_dispatch(params, xg, cfg, capacity)
-    elif dispatch_mode == "einsum":
+    else:  # the reference runs the einsum path for any mode but "gather"
         logits = torch.einsum("gsd,de->gse", xg, params.router)
         dispatch, combine, aux = route_topk(logits, cfg.moe_top_k, capacity)
         expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xg)
         expert_out = _expert_ffn(params, expert_in)
         yg = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
-    else:
-        raise ValueError(f"moe_dispatch must be 'einsum' or 'gather', got {dispatch_mode!r}")
     y = yg.reshape(b, s, d)
     if cfg.moe_shared > 0:
         y = y + _swiglu(x, params.shared_wi, params.shared_wo)

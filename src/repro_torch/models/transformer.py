@@ -9,16 +9,20 @@ the functions that drive them: ``forward_hidden``, ``forward_train``,
   ssm     Mamba-2 SSD stack (mamba2-130m)
   hybrid  Mamba-2 backbone + one shared attention block every k layers
           (zamba2), on concat(x, embed0) as in Zamba
+  audio   Whisper-style encoder/decoder over stub frame embeddings, with
+          sinusoidal positions and no rope
+  vlm     dense backbone with stub patch embeddings prepended (phi3-vision)
 
 Weights keep the reference's layouts ((d_in, d_out) matrices, used as
-``x @ w``), so converted reference weights drop in unchanged. The audio
-and vlm families are not ported yet. Parameters are built with
-``requires_grad=False``, for serving; ``repro_torch.train.init_train_state``
-switches them on. Every ported family trains (``forward_train``).
+``x @ w``), so converted reference weights drop in unchanged. Parameters
+are built with ``requires_grad=False``, for serving;
+``repro_torch.train.init_train_state`` switches them on. Every family
+serves and trains (``forward_train``).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -27,13 +31,15 @@ from torch import nn
 
 from repro_torch import Device, resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.layers import (INIT_STD, ParamGroup, attention_block, mlp_block,
-                                       rms_norm, uses_kernels)
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (INIT_STD, ParamGroup, attention_block,
+                                       decode_attention, mlp_block, rms_norm,
+                                       sinusoidal_positions, uses_kernels)
 from repro_torch.models.mamba2 import MambaBlock, mamba_block
 from repro_torch.models.moe import MoE, moe_block
 
 Cache = Dict[str, Any]
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def _dtype(cfg: ModelConfig, dtype: Optional[torch.dtype] = None) -> torch.dtype:
@@ -42,10 +48,7 @@ def _dtype(cfg: ModelConfig, dtype: Optional[torch.dtype] = None) -> torch.dtype
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: only the "
-            f"{', '.join(FAMILIES)} families are (ROADMAP item 8 ports the audio "
-            f"and vlm families)")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -73,9 +76,11 @@ def _ones(n: int, kw) -> nn.Parameter:
 
 
 class DenseBlock(nn.Module):
-    """One pre-norm block: attn (wq, wk, wv, wo), mlp (wi, wo), norm1, norm2."""
+    """One pre-norm block: attn (wq, wk, wv, wo), mlp (wi, wo), norm1, norm2;
+    with ``cross`` (an audio decoder layer) also cross (cross_wq, cross_wk,
+    cross_wv, cross_wo) and norm3."""
 
-    def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
+    def __init__(self, cfg: ModelConfig, *, generator, device, dtype, cross: bool = False):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.attn = ParamGroup(_attn_shapes(cfg, cfg.d_model),
@@ -83,6 +88,11 @@ class DenseBlock(nn.Module):
         self.mlp = ParamGroup(_mlp_shapes(cfg, cfg.d_model), **kw)
         self.norm1 = _ones(cfg.d_model, kw)
         self.norm2 = _ones(cfg.d_model, kw)
+        if cross:
+            shapes = _attn_shapes(cfg, cfg.d_model)
+            self.cross = ParamGroup({f"cross_{k}": shapes[k] for k in ("wq", "wk", "wv", "wo")},
+                                    **kw)
+            self.norm3 = _ones(cfg.d_model, kw)
 
 
 class MambaLayer(nn.Module):
@@ -114,7 +124,9 @@ class Transformer(nn.Module):
     ``cfg.tie_embeddings``); for the hybrid family also the shared block
     (shared_attn and shared_mlp on 2*d_model inputs, shared_norm1/2) and
     inv_proj (G, d, d), one per invocation. ``layers`` holds a
-    ``DenseBlock`` per layer (dense), a ``MambaLayer`` per layer (ssm;
+    ``DenseBlock`` per layer (dense, vlm; audio, each with cross-attention,
+    after the ``n_encoder_layers`` ``DenseBlock``s of ``enc_layers``, which
+    ``enc_final_norm`` follows), a ``MambaLayer`` per layer (ssm;
     hybrid, group g's layer e at index g * every + e) or a ``MoELayer`` per
     MoE layer (moe, after the ``moe_first_dense`` ``DenseBlock``s of
     ``dense_layers``). Initialized N(0, 0.02)
@@ -139,9 +151,15 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 torch.randn((d, v), **kw) * INIT_STD, requires_grad=False)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             self.layers = nn.ModuleList(DenseBlock(cfg, **kw)
                                         for _ in range(cfg.n_layers))
+        elif cfg.family == "audio":
+            self.enc_layers = nn.ModuleList(DenseBlock(cfg, **kw)
+                                            for _ in range(cfg.n_encoder_layers))
+            self.layers = nn.ModuleList(DenseBlock(cfg, cross=True, **kw)
+                                        for _ in range(cfg.n_layers))
+            self.enc_final_norm = _ones(d, kw)
         elif cfg.family == "ssm":
             self.layers = nn.ModuleList(MambaLayer(cfg, **kw)
                                         for _ in range(cfg.n_layers))
@@ -175,14 +193,28 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *
 # ---------------------------------------------------------------------------
 
 
+def _cross_params(lp: DenseBlock) -> SimpleNamespace:
+    """An audio decoder layer's cross-attention weights under the names
+    ``attention_block`` reads."""
+    c = lp.cross
+    return SimpleNamespace(wq=c.cross_wq, wk=c.cross_wk, wv=c.cross_wv, wo=c.cross_wo)
+
+
 def dense_block(lp: DenseBlock, x, cfg, run, positions, kv_cache=None,
-                cache_pos=None):
-    """One pre-norm transformer block."""
+                cache_pos=None, causal=True, use_rope=True, enc_out=None):
+    """One pre-norm transformer block (+ cross-attention on ``enc_out``, the
+    encoder's output, non-causal and without rope, after norm3)."""
     kernel = uses_kernels(run)
     h, kv = attention_block(lp.attn, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
                             cfg, run, positions, kv_cache=kv_cache,
-                            cache_pos=cache_pos)
+                            cache_pos=cache_pos, causal=causal, use_rope=use_rope)
     x = x + h
+    if enc_out is not None:
+        h, _ = attention_block(_cross_params(lp),
+                               rms_norm(x, lp.norm3, cfg.norm_eps, kernel=kernel),
+                               cfg, run, positions, kv_x=enc_out, causal=False,
+                               use_rope=False)
+        x = x + h
     h = mlp_block(lp.mlp, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg.act)
     return x + h, kv
 
@@ -257,27 +289,67 @@ def _remat(fn, run: RunConfig):
     return checkpointed
 
 
-def forward_train(params: Transformer, cfg: ModelConfig, run: RunConfig,
-                  tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Hidden states (B,S,d) for training and extras (``aux``, the mean MoE
-    load-balancing loss, for the moe family): ``forward_hidden`` without the
-    caches, under ``_remat`` per dense block, MoE layer and Mamba layer, and
-    per hybrid group (its Mamba layers and the shared block after them, on
-    concat(x, x0): x0, the embedding, enters every group, so its gradient
-    sums over the groups). The logits are left to the loss, which may chunk
-    over the sequence."""
-    _check_family(cfg)
+
+
+def _embed(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+           frontend: Optional[torch.Tensor]):
+    """Token embeddings (B,S,d), a vlm's frontend (B,F,d) before them when
+    given (so S grows to F + S), and their positions."""
     x = embed_tokens(params, cfg, tokens)
+    if cfg.family == "vlm" and frontend is not None:
+        x = torch.cat([frontend.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    return x, torch.arange(s, device=x.device)[None].expand(b, s)
+
+
+def _encode(params: Transformer, cfg: ModelConfig, run: RunConfig,
+            frontend: Optional[torch.Tensor], dtype: torch.dtype,
+            remat: bool = False) -> torch.Tensor:
+    """The audio encoder: the frame embeddings (B,F,d) plus sinusoidal
+    positions through ``enc_layers`` (non-causal, no rope; each under
+    ``_remat`` when ``remat``), then ``enc_final_norm``."""
+    if frontend is None:
+        raise ValueError(f"{cfg.name} needs its (B, F, d) frame embeddings (frontend)")
+    enc = frontend.to(dtype)
+    enc = enc + sinusoidal_positions(enc.shape[1], cfg.d_model, enc.device).to(dtype)
+
+    def layer(lp, e):
+        return dense_block(lp, e, cfg, run, None, causal=False, use_rope=False)[0]
+
+    if remat:
+        layer = _remat(layer, run)
+    for lp in params.enc_layers:
+        enc = layer(lp, enc)
+    return rms_norm(enc, params.enc_final_norm, cfg.norm_eps, kernel=uses_kernels(run))
+
+
+def _with_positions(cfg: ModelConfig, x: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """x (B,S,d) plus the sinusoidal positions start .. start + S - 1."""
+    table = sinusoidal_positions(x.shape[1], cfg.d_model, x.device, start=start)
+    return x + table.to(x.dtype)
+
+
+def forward_train(params: Transformer, cfg: ModelConfig, run: RunConfig,
+                  tokens: torch.Tensor,
+                  frontend: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Hidden states (B,S,d) for training (a vlm's F + S, its frontend's
+    positions first) and extras (``aux``, the mean MoE load-balancing loss,
+    for the moe family): ``forward_hidden`` without the caches, under
+    ``_remat`` per dense block, MoE layer, Mamba layer and encoder or
+    decoder layer, and per hybrid group (its Mamba layers and the shared
+    block after them, on concat(x, x0): x0, the embedding, enters every
+    group, so its gradient sums over the groups; an audio model's encoder
+    output likewise enters every decoder layer). The logits are left to the
+    loss, which may chunk over the sequence."""
+    x, positions = _embed(params, cfg, tokens, frontend)
     extras: Dict[str, Any] = {}
 
     def dense(lp, x):
         return dense_block(lp, x, cfg, run, positions)[0]
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         block = _remat(dense, run)
-        for lp in (params.layers if cfg.family == "dense" else params.dense_layers):
+        for lp in (params.dense_layers if cfg.family == "moe" else params.layers):
             x = block(lp, x)
     if cfg.family == "moe":
         def moe_layer(lp, x):
@@ -305,31 +377,45 @@ def forward_train(params: Transformer, cfg: ModelConfig, run: RunConfig,
         group, x0 = _remat(group, run), x
         for g in range(_n_groups(cfg)):
             x = group(g, x, x0)
+    elif cfg.family == "audio":
+        enc = _encode(params, cfg, run, frontend, x.dtype, remat=True)
+        layer = _remat(lambda lp, x, enc: dense_block(lp, x, cfg, run, positions,
+                                                      use_rope=False, enc_out=enc)[0], run)
+        x = _with_positions(cfg, x)
+        for lp in params.layers:
+            x = layer(lp, x, enc)
     x = rms_norm(x, params.final_norm, cfg.norm_eps, kernel=uses_kernels(run))
     return x, extras
 
 
 def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,
-                   tokens: torch.Tensor,
+                   tokens: torch.Tensor, frontend: Optional[torch.Tensor] = None,
                    collect_kv: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Token embeddings through the stack.
+    """Token (+ frontend) embeddings through the stack.
 
-    Returns (hidden (B,S,d), extras). For the moe family ``extras["aux"]``
-    is the MoE layers' mean load-balancing loss. With ``collect_kv``,
-    ``extras["kv"]`` lists the rope'd (K, V), (B,S,K,D) each, of every
-    attention layer (dense; moe, its MoE layers, and ``extras["dense_kv"]``
-    its leading dense layers) or shared-block invocation (hybrid), and
-    ``extras["ssm"]`` the (ssm (B,H,N,P), conv (B,K-1,C)) states of every
-    Mamba layer in order.
+    Returns (hidden (B,S,d), extras); a vlm's frontend (B,F,d) comes before
+    the tokens, so its hidden states are (B,F+S,d). For the moe family
+    ``extras["aux"]`` is the MoE layers' mean load-balancing loss; for the
+    audio family ``extras["enc_out"]`` is the encoder's output (B,F,d), which
+    the decoder cross-attends. With ``collect_kv``, ``extras["kv"]`` lists
+    the (K, V), (B,S,K,D) each and rope'd but for audio, of every
+    self-attention layer (dense, vlm, audio; moe, its MoE layers, and
+    ``extras["dense_kv"]`` its leading dense layers) or shared-block
+    invocation (hybrid), and ``extras["ssm"]`` the (ssm (B,H,N,P), conv
+    (B,K-1,C)) states of every Mamba layer in order.
     """
     extras: Dict[str, Any] = {}
-    x = embed_tokens(params, cfg, tokens)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    x, positions = _embed(params, cfg, tokens, frontend)
     kvs, states, dense_kvs = [], [], []
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         for lp in params.layers:
             x, kv = dense_block(lp, x, cfg, run, positions)
+            kvs.append(kv)
+    elif cfg.family == "audio":
+        enc = extras["enc_out"] = _encode(params, cfg, run, frontend, x.dtype)
+        x = _with_positions(cfg, x)
+        for lp in params.layers:
+            x, kv = dense_block(lp, x, cfg, run, positions, use_rope=False, enc_out=enc)
             kvs.append(kv)
     elif cfg.family == "moe":
         for lp in params.dense_layers:
@@ -371,7 +457,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """Zeroed cache and ``pos`` (a Python int, the number of positions
     filled; every row shares it).
 
-    * dense: k/v (L, B, max_len, K, D).
+    * dense, vlm: k/v (L, B, max_len, K, D).
+    * audio: k/v (L, B, max_len, K, D) and cross_k/cross_v (L, B, F, K, D),
+      F = ``frontend_len``.
     * moe: k/v (L - first_dense, B, max_len, K, D) for the MoE layers and
       dk/dv (first_dense, B, max_len, K, D) for the leading dense ones.
     * ssm: ssm (L, B, H, N, P) and conv (L, B, K-1, C), C = d_inner + 2N.
@@ -382,11 +470,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     dev = resolve_device(device)
     kw = dict(device=dev, dtype=_dtype(cfg, dtype))
     cache: Cache = {"pos": 0}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe", "audio"):
         dense = cfg.moe_first_dense if cfg.family == "moe" else 0
-        for k, v, layers in (("k", "v", cfg.n_layers - dense), ("dk", "dv", dense)):
+        cross = cfg.n_layers if cfg.family == "audio" else 0
+        for k, v, layers, length in (("k", "v", cfg.n_layers - dense, max_len),
+                                     ("dk", "dv", dense, max_len),
+                                     ("cross_k", "cross_v", cross, cfg.frontend_len)):
             if layers:
-                shape = (layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+                shape = (layers, batch, length, cfg.n_kv_heads, cfg.d_head)
                 cache[k], cache[v] = torch.zeros(shape, **kw), torch.zeros(shape, **kw)
         return cache
     lead = (cfg.n_layers,) if cfg.family == "ssm" else (_n_groups(cfg), cfg.hybrid_attn_every)
@@ -409,17 +500,22 @@ def _layer_states(cache: Cache):
 
 
 def prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
-            tokens: torch.Tensor, max_len: Optional[int] = None):
+            tokens: torch.Tensor, max_len: Optional[int] = None,
+            frontend: Optional[torch.Tensor] = None):
     """Full-sequence forward that also returns the populated cache.
 
-    The cache is sized for ``max(max_len, S)`` positions, so decoding can
-    follow without growing it (a hybrid ring buffer holds the last
-    ``min(window, S)`` positions in its first slots); the logits are those of
-    the last position (B,1,V).
+    The cache is sized for ``max(max_len, S)`` positions, where S counts a
+    vlm's frontend positions (``max_len`` as the reference's engine grows
+    it, to prompt + new tokens, may leave them out), so decoding can follow
+    without growing it (a hybrid ring buffer holds the last ``min(window,
+    S)`` positions in its first slots). An audio cache also holds each
+    decoder layer's cross K/V, the encoder output times cross_wk and
+    cross_wv, as the reference computes them; the logits are those of the
+    last position (B,1,V).
     """
-    hidden, extras = forward_hidden(params, cfg, run, tokens, collect_kv=True)
+    hidden, extras = forward_hidden(params, cfg, run, tokens, frontend, collect_kv=True)
     logits_last = lm_logits(params, cfg, hidden[:, -1:])
-    b, s = tokens.shape
+    b, s = hidden.shape[:2]
     cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device,
                        dtype=params.embed.dtype)
     w = min(cfg.window or s, s) if cfg.family == "hybrid" else s
@@ -433,8 +529,33 @@ def prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
         for i, (ssm, conv) in enumerate(extras["ssm"]):
             ssm_l[i] = ssm
             conv_l[i] = conv
+    if "enc_out" in extras:
+        enc = extras["enc_out"]
+        shape = cache["cross_k"].shape[1:]
+        for i, lp in enumerate(params.layers):
+            cache["cross_k"][i] = (enc @ lp.cross.cross_wk).reshape(shape)
+            cache["cross_v"][i] = (enc @ lp.cross.cross_wv).reshape(shape)
     cache["pos"] = s
     return logits_last, cache
+
+
+def _audio_decode_layer(lp: DenseBlock, x, cfg, run, positions, kv_cache, pos,
+                        cross_kv, cross_lengths):
+    """One audio decoder layer for one new token: self-attention against the
+    cache (no rope), the cross query (norm3) against the layer's cross K/V,
+    then the MLP."""
+    kernel = uses_kernels(run)
+    h, _ = attention_block(lp.attn, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
+                           cfg, run, positions, kv_cache=kv_cache, cache_pos=pos,
+                           use_rope=False)
+    x = x + h
+    b = x.shape[0]
+    q = (rms_norm(x, lp.norm3, cfg.norm_eps, kernel=kernel) @ lp.cross.cross_wq).reshape(
+        b, 1, cfg.n_heads, cfg.d_head)
+    attend = ops.flash_decode if kernel else decode_attention
+    att = attend(q, *cross_kv, cross_lengths)
+    x = x + att.reshape(b, 1, -1) @ lp.cross.cross_wo
+    return x + mlp_block(lp.mlp, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg.act)
 
 
 def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
@@ -446,20 +567,35 @@ def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
     only ``pos`` differs. A hybrid writes position ``pos`` to ring slot
     ``pos % wlen`` and attends the first ``min(pos + 1, wlen)`` slots. A moe
     step routes its B tokens as one group, whose capacity is that of B
-    tokens (as in the reference).
+    tokens (as in the reference). An audio step adds the sinusoid of
+    ``pos`` and cross-attends all F encoder positions. A full cache raises,
+    but for the vlm family, which mirrors the reference: position ``pos`` of
+    a cache of T slots goes to slot ``min(pos, T - 1)`` and the step attends
+    ``pos + 1`` positions, so all T.
     """
     pos = cache["pos"]
     b = tokens.shape[0]
     x = embed_tokens(params, cfg, tokens)
     positions = torch.full((b, 1), pos, device=x.device)
-    if cfg.family in ("dense", "moe"):
-        if pos >= cache["k"].shape[2]:
+    if cfg.family in ("dense", "vlm", "moe", "audio"):
+        if pos >= cache["k"].shape[2] and cfg.family != "vlm":
             raise ValueError(f"KV cache of {cache['k'].shape[2]} positions is full")
-        dense = params.layers if cfg.family == "dense" else params.dense_layers
-        keys = ("k", "v") if cfg.family == "dense" else ("dk", "dv")
-        for i, lp in enumerate(dense):
-            x, _ = dense_block(lp, x, cfg, run, positions,
-                               kv_cache=(cache[keys[0]][i], cache[keys[1]][i]), cache_pos=pos)
+        if cfg.family == "audio":
+            x = _with_positions(cfg, x, start=pos)
+            cross_lengths = torch.full((b,), cache["cross_k"].shape[2], dtype=torch.int32,
+                                       device=x.device)
+            for i, lp in enumerate(params.layers):
+                x = _audio_decode_layer(lp, x, cfg, run, positions,
+                                        (cache["k"][i], cache["v"][i]), pos,
+                                        (cache["cross_k"][i], cache["cross_v"][i]),
+                                        cross_lengths)
+        else:
+            moe = cfg.family == "moe"
+            keys = ("dk", "dv") if moe else ("k", "v")
+            for i, lp in enumerate(params.dense_layers if moe else params.layers):
+                x, _ = dense_block(lp, x, cfg, run, positions,
+                                   kv_cache=(cache[keys[0]][i], cache[keys[1]][i]),
+                                   cache_pos=pos)
         if cfg.family == "moe":
             for i, lp in enumerate(params.layers):
                 x, _, _ = moe_layer_block(lp, x, cfg, run, positions,

@@ -4,9 +4,10 @@ Requests are left-padded (with token 0, which is attended, as in the
 reference) into waves of at most ``batch_size``; a wave runs prefill, then
 greedy decode steps until every request has its tokens or hit ``eos_id``,
 and the next wave takes the freed slots. The semantics are those of
-``repro.serving.engine.ServeEngine``, for the dense, moe, ssm and hybrid
-families; the default run config routes the model through the
-kernel-backed ops (``attention_impl="flash"``). Beside decoding, the engine
+``repro.serving.engine.ServeEngine``, for every family (the audio and vlm
+ones take their frame or patch embeddings as ``frontend``); the default
+run config routes the model through the kernel-backed ops
+(``attention_impl="flash"``). Beside decoding, the engine
 serves kernel-analysis requests through a co-resident ``AnalysisService``
 on its own device (``analysis``, ``analyze_asm``).
 """
@@ -63,28 +64,36 @@ class ServeEngine:
         return self.analysis.analyze_batch(list(requests))
 
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 16,
-                 eos_id: Optional[int] = None) -> List[GenerationResult]:
-        """Generate for a list of prompts with continuous batching."""
+                 eos_id: Optional[int] = None,
+                 frontend: Optional[torch.Tensor] = None) -> List[GenerationResult]:
+        """Generate for a list of prompts with continuous batching.
+
+        ``frontend`` (B, F, d) is an audio model's frame or a vlm's patch
+        embeddings, moved to the engine's device; every wave takes it as it
+        is, as the reference's engine does, so B is a wave's batch."""
+        if frontend is not None:
+            frontend = frontend.to(self.device)
         results = []
         queue = list(enumerate(prompts))
         with torch.inference_mode():
             while queue:
                 wave = queue[:self.batch_size]
                 queue = queue[self.batch_size:]
-                results.extend(self._run_wave(wave, max_new_tokens, eos_id))
+                results.extend(self._run_wave(wave, max_new_tokens, eos_id, frontend))
         return sorted(results, key=lambda r: r.request_id)
 
-    def _run_wave(self, wave, max_new_tokens, eos_id):
+    def _run_wave(self, wave, max_new_tokens, eos_id, frontend):
         b = len(wave)
         plen = max(len(p) for _, p in wave)
         tokens = np.zeros((b, plen), np.int64)
         for i, (_, p) in enumerate(wave):
             tokens[i, plen - len(p):] = p  # left-pad
 
-        # The cache is sized for the whole generation budget up front.
+        # The cache is sized for the whole generation budget up front (a
+        # vlm's frontend positions left out of it, as in the reference).
         logits, cache = prefill(self.params, self.cfg, self.run,
                                 torch.from_numpy(tokens).to(self.device),
-                                max_len=plen + max_new_tokens)
+                                max_len=plen + max_new_tokens, frontend=frontend)
         cache = self._grow_cache(cache, plen + max_new_tokens, b)
 
         out_tokens = [[] for _ in range(b)]
@@ -114,7 +123,8 @@ class ServeEngine:
         k/v (and a moe cache's dk/dv) grow to what ``init_cache`` gives for
         ``new_len`` (a hybrid ring buffer to ``min(window, new_len)``), zeros
         after the old positions;
-        the ssm and conv states carry over unchanged. A cache with nothing to
+        the ssm and conv states and an audio cache's cross K/V carry over
+        unchanged. A cache with nothing to
         grow (no k/v, or k/v long enough already) is returned as it is. On
         ``_run_wave``'s path prefill has sized the cache already, so this
         returns it unchanged; it is kept as the reference engine's
@@ -133,7 +143,7 @@ class ServeEngine:
         for key in ("k", "v", "dk", "dv"):
             if key in cache:
                 grown[key][:, :, :old_len] = cache[key]
-        for key in ("ssm", "conv"):
+        for key in ("ssm", "conv", "cross_k", "cross_v"):
             if key in cache:
                 grown[key] = cache[key]
         grown["pos"] = cache["pos"]

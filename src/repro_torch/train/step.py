@@ -26,10 +26,15 @@ Batch = Dict[str, torch.Tensor]
 
 
 def _loss_fn(params, cfg: ModelConfig, run: RunConfig, batch: Batch):
-    """(total loss, {"loss", "aux", "accuracy"}) of one batch."""
-    hidden, extras = forward_train(params, cfg, run, batch["tokens"])
+    """(total loss, {"loss", "aux", "accuracy"}) of one batch; a vlm's
+    frontend positions take no loss."""
+    hidden, extras = forward_train(params, cfg, run, batch["tokens"],
+                                   frontend=batch.get("frontend"))
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    loss, acc = cross_entropy_loss(hidden, head, batch["labels"], chunk=run.loss_chunk,
+    labels = batch["labels"]
+    if hidden.shape[1] != labels.shape[1]:  # vlm: frontend positions unsupervised
+        hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
+    loss, acc = cross_entropy_loss(hidden, head, labels, chunk=run.loss_chunk,
                                    vocab=cfg.vocab)
     aux = extras.get("aux", torch.zeros((), dtype=torch.float32, device=loss.device))
     total = loss + 0.01 * aux
@@ -70,7 +75,8 @@ def _int8_roundtrip(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def train_step(state: TrainState, batch: Batch, cfg: ModelConfig,
                run: RunConfig) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One optimizer step on ``batch`` ({"tokens", "labels"}, (B,S) each):
+    """One optimizer step on ``batch`` ({"tokens", "labels"}, (B,S) each,
+    and "frontend" (B,F,d) for the audio and vlm families):
     gradients (averaged in f32 over ``run.microbatch`` slices of the batch),
     the int8 round trip under ``run.grad_compression == "int8"``, then
     AdamW at the cosine schedule's rate for ``state.step``."""

@@ -201,7 +201,7 @@ def test_port_checkpoint_restores_into_reference(tmp_path, states):
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m", "zamba2-2.7b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "whisper-base", "phi-3-vision-4.2b"])
 def test_reference_tree_inverts_params_from_jax(arch):
     jcfg, cfg = jax_tiny(jax_get_config(arch)), tiny_variant(get_config(arch))
     tree = jax.tree_util.tree_map(np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(0)))

@@ -60,7 +60,7 @@ def test_module_list_covers_the_slice():
                  "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.ckpt", "repro_torch.models.convert",
                  "repro_torch.launch.ft", "repro_torch.launch.train",
-                 "repro_torch.models.moe"):
+                 "repro_torch.models.moe", "repro_torch.models.layers"):
         assert name in MODULES
 
 

@@ -24,7 +24,7 @@ from repro.models import prefill as jax_prefill
 from repro.models.transformer import forward_hidden as jax_forward_hidden
 from repro.serving.engine import ServeEngine as JaxEngine
 from repro_torch.configs import RunConfig, get_config, tiny_variant
-from repro_torch.models import Transformer, decode_step, forward_hidden, init_cache, prefill
+from repro_torch.models import Transformer, decode_step, forward_hidden, prefill
 from repro_torch.models.convert import params_from_jax
 
 IMPLS = ("flash", "chunked", "naive")
@@ -137,17 +137,6 @@ def test_unknown_attention_impl_raises(setup):
     _, _, cfg, _, _, model, tokens = setup
     with pytest.raises(ValueError, match="attention_impl"):
         forward_hidden(model, cfg, _run("pallas"), torch.from_numpy(tokens))
-
-
-@pytest.mark.parametrize("entry", ["Transformer", "init_cache"])
-@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
-def test_other_families_are_not_ported(arch, entry):
-    cfg = tiny_variant(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if entry == "Transformer":
-            Transformer(cfg, device="cpu")
-        else:
-            init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_random_init_is_seeded_and_scaled():

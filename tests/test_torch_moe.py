@@ -164,8 +164,21 @@ def test_moe_block_dispatch_modes_equal_reference(block_setup, tokens):
         _close(_np(y), jy, 1e-5)
         _close(float(aux), float(jaux), 1e-6)
     _close(_np(got["gather"][0]), _np(got["einsum"][0]), 1e-6)
-    with pytest.raises(ValueError, match="moe_dispatch"):
-        moe.moe_block(model.layers[0].moe, torch.from_numpy(x), cfg, "sparse")
+
+
+@pytest.mark.parametrize("mode", ["sparse", "dense", ""])
+def test_moe_block_other_dispatch_modes_run_einsum(block_setup, mode):
+    """Any mode but "gather" runs the einsum path, in both packages."""
+    jcfg, cfg, tree, model = block_setup
+    x = np.random.default_rng(len(mode)).standard_normal((2, 37, cfg.d_model))
+    x = x.astype(np.float32)
+    jparams = {k: v[0] for k, v in tree["layers"]["moe"].items()}
+    jy, jaux = jax_moe_block(jparams, jnp.asarray(x), jcfg, dispatch_mode=mode)
+    y, aux = moe.moe_block(model.layers[0].moe, torch.from_numpy(x), cfg, mode)
+    _close(_np(y), jy, 1e-5)
+    _close(float(aux), float(jaux), 1e-6)
+    einsum, _ = moe.moe_block(model.layers[0].moe, torch.from_numpy(x), cfg, "einsum")
+    assert torch.equal(y, einsum)
 
 
 @pytest.mark.parametrize("arch,bounds", [("deepseek-moe-16b", (14e9, 18e9)),

@@ -113,6 +113,8 @@ ATTENTION_CASES = [
     (33, 33, 4, 1, 32, True, 5, 0, 20.0),    # window and softcap
     (20, 50, 4, 2, 32, True, 0, 30, 0.0),    # query offset
     (25, 25, 4, 2, 32, False, 0, 0, 0.0),    # not causal
+    (12, 40, 4, 4, 32, False, 0, 0, 0.0),    # not causal, S != T (cross-attention)
+    (37, 16, 4, 2, 32, False, 0, 0, 0.0),    # not causal, S > T
     (3, 4, 2, 1, 8, True, 2, 6, 0.0),        # no query sees a key: zeros
 ]
 
@@ -153,6 +155,7 @@ GRADCHECK_CASES = [
     (4, 6, 2, 1, True, 0, 2, 2.0),      # query offset, softcap
     (4, 4, 2, 1, True, 2, 3, 1.5),      # offset, window and softcap
     (5, 5, 2, 1, False, 0, 0, 0.0),     # not causal
+    (3, 7, 2, 2, False, 0, 0, 0.0),     # not causal, S != T
 ]
 
 
@@ -230,13 +233,6 @@ def test_kernel_path_launches_per_step(monkeypatch, remat):
     L = cfg.n_layers
     assert calls == ({"norm": 2 * L + 1, "attention": L} if remat == "none"
                      else {"norm": 4 * L + 1, "attention": 2 * L})
-
-
-@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
-def test_forward_train_raises_for_families_without_training(arch):
-    cfg = tiny_variant(get_config(arch))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        forward_train(None, cfg, RunConfig(), torch.zeros((1, 4), dtype=torch.long))
 
 
 # ---------------------------------------------------------------------------
