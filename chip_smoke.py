@@ -14,7 +14,9 @@ the repository is not beside it). It
    frames) and cross-attention (64 queries against 1500 keys) and a ragged
    S != T; phi-3-vision's prefill (1088 positions, D 96, H = K = 32); the
    decode caches of both, whisper's cross cache whole and phi-3-vision's at
-   lengths past its T; the SSD step on both of its
+   lengths past its T; RMSNorm at d 4096 and 6144 and over qwen3-8b's q/k
+   rows of 128, attention and decode at D 128 with G 4 (qwen3-8b), 8
+   (yi-9b) and 12 (starcoder2-15b); the SSD step on both of its
    paths, bf16 B/C on the tensor cores and f32 B/C on the CUDA cores, at the
    zamba2-2.7b and mamba2-130m shapes, the bf16 path also against the exact
    f32 form, and its wrapper at P and N the kernel cuts into pieces) and at
@@ -29,14 +31,16 @@ the repository is not beside it). It
    4 and 64 new tokens, mamba2-130m with 4 such requests and 16 new tokens,
    whisper-base with 8 requests of 64 tokens and 192 new ones over 1500
    seeded frame embeddings, phi-3-vision-4.2b with 8 requests of 512
-   tokens and 64 new ones after 576 seeded patch embeddings.
+   tokens and 64 new ones after 576 seeded patch embeddings, and yi-9b,
+   qwen3-8b and starcoder2-15b with 8 requests of 512 tokens and 64 new.
    For each it checks the exact kernel launches of that run, and, but for
-   deepseek-moe-16b, that a decode step's logits match prefill's on the
-   same prefix, and (tinyllama, zamba2, whisper-base, phi-3-vision) that
-   the kernel path matches the plain path in f32 and bf16;
-   deepseek-moe-16b's kernel path is held to its chunked path in f32,
-   prefill and one decode step, at its dense layer and 3 MoE layers
-   (``PHASES`` says why);
+   deepseek-moe-16b and starcoder2-15b, that a decode step's logits match
+   prefill's on the same prefix, and (tinyllama, zamba2, whisper-base,
+   phi-3-vision, yi-9b, qwen3-8b) that the kernel path matches the plain
+   path in f32 and bf16; deepseek-moe-16b's and starcoder2-15b's kernel
+   paths are held to their chunked paths in f32, prefill and one decode
+   step, at a cut depth (``PHASES`` says why), starcoder2-15b's decode also
+   to its prefill;
 5. runs the analyzer (``repro_torch.api.analyze``, each call a wave of one)
    on the card and on the host over the Gauss-Seidel kernel of each of the
    five machine models x unroll {1, 2, 4} x predictors {all, tp+cp+lcd, tp}
@@ -110,7 +114,26 @@ the repository is not beside it). It
    forward and backward ms, device busy and idle share, peak memory and the
    step's bound; last, for tinyllama-1.1b and mamba2-130m, a checkpoint
    saved, restored into a fresh state, and one more step from each, equal;
-12. prints each phase's seconds, a JSON line of per-kernel numbers and,
+12. shards: (a) on a one-rank NCCL group and a 1 x 1 ("data", "model")
+   ``DeviceMesh``, ``launch.elastic.apply_resize`` restores a checkpoint
+   of tinyllama-1.1b after one step, saved by the phase, onto the mesh,
+   every leaf equal to the checkpoint's bit for bit, then one train step at
+   full width and depth (bf16, 4 x 512 tokens, K1 and K2 through their
+   Functions) runs with the state distributed by ``state_shardings`` (each
+   tensor a DTensor, ``Shard`` on the mesh's axes of one device as on any
+   other) under the mesh context, with ``seq_shard``, ``zero`` and
+   ``fsdp`` on: its loss and gradients must
+   equal the same step's on the same state without a mesh, with exact
+   launches; its step ms and device idle share are printed, and the group
+   is destroyed; (b) a capacity plan, arithmetic only: each
+   architecture's per-device bytes of ``state_shardings`` (ZeRO and FSDP)
+   on the 16 x 16 and 2 x 16 x 16 meshes beside its whole state; (c) the
+   sharded train step of every architecture (tiny, f32) on meshes of four
+   gloo processes of the host, 2 x 2 and 1 x 4, with this machine's torch
+   (``tests/torch_mesh_worker.py``): the residual stream sharded over batch
+   and sequence, the loss, gradients and AdamW step held to the step
+   without a mesh with ``tests/test_torch_distributed.py``'s tolerances;
+13. prints each phase's seconds, a JSON line of per-kernel numbers and,
    last, the JSON result line.
 
 Any failed check raises, so the script exits non-zero before the last line.
@@ -206,6 +229,27 @@ PHASES = (
     dict(arch="phi-3-vision-4.2b", layers=32, d_model=3072, requests=REQUESTS,
          new_tokens=NEW_TOKENS, frontend=PHI_PATCHES, against_plain=True, bf16_decode_tol=0.3,
          per_prefill={"fused_rmsnorm": 2 * 32 + 1, "flash_attention": 32, "ssd_chunk_dual": 0}),
+    # The dense models of the largest head dim: D 128 at G 8 (yi-9b, 8.83 B
+    # parameters), G 4 (qwen3-8b, 8.19 B, whose q/k norms add two K1 a layer
+    # over rows of 128: models/layers.py, attention_block) and G 12
+    # (starcoder2-15b, 15.96 B, GELU). Their bf16 decode is held on the
+    # grounds of zamba2's: on the H100 yi-9b's kernel path read 0.319 and
+    # its plain path, which rounds as the reference does, 0.440 (48 layers
+    # at d 4096; the same in three runs), qwen3-8b's 0.241 and 0.371 (two
+    # runs), so each bound is 1.2 times its plain path's reading. yi-9b and
+    # qwen3-8b keep an f32 copy beside the bf16 one (35 and 33 GB); that of
+    # starcoder2-15b (64 GB beside its 32) would not fit, so its f32 checks
+    # run at 4 layers of its full width through ``paths_layers``.
+    dict(arch="yi-9b", layers=48, d_model=4096, requests=REQUESTS, new_tokens=NEW_TOKENS,
+         against_plain=True, bf16_decode_tol=0.53,
+         per_prefill={"fused_rmsnorm": 2 * 48 + 1, "flash_attention": 48, "ssd_chunk_dual": 0}),
+    dict(arch="qwen3-8b", layers=36, d_model=4096, requests=REQUESTS, new_tokens=NEW_TOKENS,
+         against_plain=True, bf16_decode_tol=0.45,
+         per_prefill={"fused_rmsnorm": 2 * 36 + 1 + 2 * 36, "flash_attention": 36,
+                      "ssd_chunk_dual": 0}),
+    dict(arch="starcoder2-15b", layers=40, d_model=6144, requests=REQUESTS,
+         new_tokens=NEW_TOKENS, against_plain=False, bf16_decode_tol=None, paths_layers=4,
+         per_prefill={"fused_rmsnorm": 2 * 40 + 1, "flash_attention": 40, "ssd_chunk_dual": 0}),
 )
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores
@@ -383,13 +427,17 @@ def check_kernels(port):
     # norm: tinyllama 2048; zamba2 2560 (norm1, final_norm) and 5120
     # (ssm_norm, the shared block's norms); mamba2-130m 768 and 1536;
     # whisper-base 512 (encoder rows B*1500, decoder rows B*64) and
-    # phi-3-vision 3072 (rows B*(576 + 512)).
+    # phi-3-vision 3072 (rows B*(576 + 512)); yi-9b and qwen3-8b 4096,
+    # starcoder2-15b 6144, and qwen3-8b's q and k norms over rows of 128
+    # (B*S*32 and B*S*8 at prefill, B*32 and B*8 at decode).
     # d = 2050 is not in 16-byte vectors and takes the one-element loop;
     # d = 8200 is wider than the register kernel holds (8192) and takes the
     # loop that reads the row twice.
-    widths = (2048, 2560, 5120, 768, 1536)
+    widths = (2048, 2560, 5120, 768, 1536, 4096, 6144)
     slice_rows = [(BATCH * WHISPER_FRAMES, 512), (BATCH * WHISPER_PROMPT, 512), (BATCH, 512),
-                  (BATCH * (PHI_PATCHES + PROMPT_LEN), 3072), (BATCH, 3072)]
+                  (BATCH * (PHI_PATCHES + PROMPT_LEN), 3072), (BATCH, 3072),
+                  (BATCH * PROMPT_LEN * 32, 128), (BATCH * PROMPT_LEN * 8, 128),
+                  (BATCH * 32, 128), (BATCH * 8, 128)]
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
         for rows, d in [(r, d) for d in widths for r in (BATCH * PROMPT_LEN, BATCH)] + \
@@ -437,7 +485,11 @@ def check_kernels(port):
                 (2, 100, 100, 8, 2, 96, 0, 0, 0.0), (2, 100, 100, 8, 2, 128, 0, 0, 0.0),
                 (2, 5, 5, 8, 2, 32, 0, 0, 0.0), (2, 100, 100, 32, 4, 64, 0, 0, 30.0),
                 (2, 40, 130, 32, 4, 64, 0, 90, 0.0), (2, 40, 130, 8, 8, 80, 33, 90, 30.0),
-                (BATCH, PROMPT_LEN, PROMPT_LEN, 16, 16, 128, 0, 0, 0.0)):
+                (BATCH, PROMPT_LEN, PROMPT_LEN, 16, 16, 128, 0, 0, 0.0),
+                # D 128 at G 4 (qwen3-8b), 8 (yi-9b) and 12 (starcoder2-15b).
+                (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 8, 128, 0, 0, 0.0),
+                (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 4, 128, 0, 0, 0.0),
+                (BATCH, PROMPT_LEN, PROMPT_LEN, 48, 4, 128, 0, 0, 0.0)):
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, kv, d, dtype=dtype), \
                 rnd(b, t, kv, d, dtype=dtype)
             kw = dict(causal=causal == [], window=win, q_offset=qoff, softcap=cap)
@@ -454,6 +506,9 @@ def check_kernels(port):
             (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 4, 64, True),
             (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 32, 80, True),
             (BATCH, PROMPT_LEN, PROMPT_LEN, 16, 16, 128, True),
+            (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 8, 128, True),
+            (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 4, 128, True),
+            (BATCH, PROMPT_LEN, PROMPT_LEN, 48, 4, 128, True),
             (BATCH, PHI_SEQ, PHI_SEQ, 32, 32, 96, True),
             (BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 8, 8, 64, False),
             (BATCH, WHISPER_PROMPT, WHISPER_FRAMES, 8, 8, 64, False),
@@ -495,6 +550,9 @@ def check_kernels(port):
                 (2, 130, 8, 2, 96, [130, 65], 0, 0.0), (2, 130, 8, 2, 128, [64, 1], 0, 0.0),
                 (2, 130, 64, 1, 64, [130, 65], 0, 0.0),
                 (BATCH, t_serve, 16, 16, 128, [mid] * BATCH, 0, 0.0),
+                (BATCH, t_serve, 32, 8, 128, [mid] * BATCH, 0, 0.0),
+                (BATCH, t_serve, 32, 4, 128, [mid] * BATCH, 0, 0.0),
+                (BATCH, t_serve, 48, 4, 128, [mid, 300, 65, t_serve], 0, 0.0),
                 # whisper-base's cross cache (every frame valid, a ragged
                 # last split) and self cache (prompt + new tokens);
                 # phi-3-vision's cache of 1088 slots at lengths past it, as
@@ -518,7 +576,8 @@ def check_kernels(port):
     # cross cache is read whole, phi-3-vision's at a length past its T.
     for b, t, h, kv, d, length in (
             (BATCH, t_serve, 32, 4, 64, mid), (BATCH, t_serve, 32, 32, 80, mid),
-            (BATCH, t_serve, 16, 16, 128, mid),
+            (BATCH, t_serve, 16, 16, 128, mid), (BATCH, t_serve, 32, 8, 128, mid),
+            (BATCH, t_serve, 32, 4, 128, mid), (BATCH, t_serve, 48, 4, 128, mid),
             (BATCH, WHISPER_FRAMES, 8, 8, 64, WHISPER_FRAMES),
             (BATCH, WHISPER_T, 8, 8, 64, WHISPER_T - WHISPER_NEW // 2),
             (BATCH, PHI_SEQ, 32, 32, 96, PHI_SEQ + NEW_TOKENS // 2)):
@@ -737,7 +796,7 @@ def serve(port, device_name, phase):
     if "paths_layers" in phase:
         del engine, results, cache, model
         torch.cuda.empty_cache()
-        summary["paths"] = moe_paths(port, cfg, tokens, phase["paths_layers"])
+        summary["paths"] = cut_paths(port, cfg, tokens, phase["paths_layers"])
         return summary, launches
 
     # Logits of three runs per path: prefill on the prompt less its last
@@ -794,11 +853,13 @@ def serve(port, device_name, phase):
     return summary, launches
 
 
-def moe_paths(port, full, tokens, layers):
-    """A moe model of ``full``'s width cut to ``layers`` layers, seed-0
-    weights in f32 with TF32 off: prefill on the prompts less their last
-    token and one decode step on it, on the kernel path (with its exact
-    launches) and on the chunked path, whose logits must agree."""
+def cut_paths(port, full, tokens, layers):
+    """A model of ``full``'s width cut to ``layers`` layers, seed-0 weights in
+    f32 with TF32 off: prefill on the prompts less their last token and one
+    decode step on it, on the kernel path (with its exact launches) and on
+    the chunked path, whose logits must agree; but for moe (whose decode
+    step has its batch's capacity), the decode step's logits also equal the
+    whole prompt's prefill on the kernel path."""
     cfg_mod, models, ops = port["configs"], port["models"], port["ops"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -814,14 +875,21 @@ def moe_paths(port, full, tokens, layers):
             dec, _ = models.decode_step(model, cfg, run, cache, tokens[:, -1:])
         torch.cuda.synchronize()
         out[impl] = (pre[:, 0], dec[:, 0], dict(ops.LAUNCHES))
+    norms = 2 * layers + 1 + (2 * layers if cfg.qk_norm else 0)
     per_prefill, per_step = expected_launches(
-        {"fused_rmsnorm": 2 * layers + 1, "flash_attention": layers, "ssd_chunk_dual": 0})
+        {"fused_rmsnorm": norms, "flash_attention": layers, "ssd_chunk_dual": 0})
     expect = {k: per_prefill[k] + per_step[k] for k in per_prefill}
     require(out["flash"][2] == expect and not any(out["chunked"][2].values()),
-            f"moe path launches {out['flash'][2]}, expected {expect}")
+            f"{full.name} path launches {out['flash'][2]}, expected {expect}")
     for i, what in enumerate(("prefill", "decode")):
         logits_close(f"{full.name} at {layers} layers: {what}_kernels_vs_chunked",
                      out["flash"][i], out["chunked"][i], torch.float32)
+    if cfg.family != "moe":
+        with torch.inference_mode():
+            whole, _ = models.prefill(model, cfg, cfg_mod.RunConfig(attention_impl="flash"),
+                                      tokens)
+        logits_close(f"{full.name} at {layers} layers: decode_matches_prefill",
+                     out["flash"][1], whole[:, -1], torch.float32)
     del model, out
     torch.cuda.empty_cache()
     return {"layers": layers, "launches": expect}
@@ -2189,7 +2257,7 @@ def checkpoint_round_trip(port, cfg, state, step_fn, batch_at):
     parameter within one bf16 step of its value or 2 lr (an update that
     rounds the other way)."""
     train_state, ckpt = port["train_state"], port["ckpt"]
-    directory = os.path.join(ROOT, "build", "train_ckpt")
+    directory = checkpoint_dir(cfg.name)
     shutil.rmtree(directory, ignore_errors=True)
     try:
         t0 = time.perf_counter()
@@ -2241,6 +2309,10 @@ def checkpoint_round_trip(port, cfg, state, step_fn, batch_at):
     log(json.dumps({"train_checkpoint": restore}))
     del fresh, kept
     return restore
+
+
+def checkpoint_dir(arch):
+    return os.path.join(ROOT, "build", "train_ckpt", arch)
 
 
 def training(port):
@@ -2316,6 +2388,244 @@ def train_schedules(port, arch=TRAIN_ARCH, lrs=(3e-4, TRAIN_LR), seeds=(0, 1, 2,
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the sharding layer
+# ---------------------------------------------------------------------------
+
+SHARD_ARCH = "tinyllama-1.1b"
+
+
+def mesh_step(port):
+    """Phase 12(a): a one-rank NCCL group and a 1 x 1 mesh; a checkpoint of
+    the model after one step (saved here, with ``save_checkpoint``)
+    restored onto it by ``apply_resize``, every leaf bit for bit; one train
+    step's loss and gradients with the state distributed by
+    ``state_shardings`` under the mesh context (``seq_shard``, ``zero`` and
+    ``fsdp`` on) against the same step without a mesh; the exact launches
+    of both; the mesh step's ms and device idle share. Returns the summary
+    and the mesh step's launches."""
+    dist = torch.distributed
+    cfg_mod, ops, train_state, step_mod, data, ckpt = (
+        port["configs"], port["ops"], port["train_state"], port["train_step"], port["data"],
+        port["ckpt"])
+    elastic, sharding = port["elastic"], port["sharding"]
+    cfg = cfg_mod.get_config(SHARD_ARCH)
+    run = cfg_mod.RunConfig(attention_impl="flash", attention_chunk=64, remat="full",
+                            zero=True, fsdp=True, seq_shard=True, learning_rate=TRAIN_LR,
+                            warmup_steps=TRAIN_WARMUP, total_steps=100)
+    directory = checkpoint_dir(SHARD_ARCH)
+    shutil.rmtree(directory, ignore_errors=True)
+    saved_state = train_state.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 2), device="cuda")
+    saved_state, _ = step_mod.make_train_step(cfg, run)(saved_state, train_batch(data, cfg, 0))
+    ckpt.save_checkpoint(directory, int(saved_state.step),
+                         train_state.state_tree(saved_state, cfg))
+    del saved_state
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        plan = elastic.plan_resize(1, 1, BATCH, TRAIN_LR, device="cuda")
+        mesh = plan.mesh_ctx.mesh
+        require(type(mesh).__name__ == "DeviceMesh" and mesh.device_type == "cuda"
+                and sharding.mesh_shape(mesh) == {"data": 1, "model": 1},
+                f"a 1 x 1 DeviceMesh on the card: {mesh!r}")
+        t0 = time.perf_counter()
+        state, step = elastic.apply_resize(plan, cfg, run, directory, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        tree = train_state.state_tree(state, cfg)
+        saved, saved_step = ckpt.restore_checkpoint(ckpt.latest_checkpoint(directory), tree)
+        flat, want = ckpt.ckpt._flatten(tree), ckpt.ckpt._flatten(saved)
+        require(step == saved_step == int(state.step) and flat.keys() == want.keys(),
+                "apply_resize: the checkpoint's step and leaves")
+        for key, t in flat.items():
+            require(torch.equal(t, want[key]),
+                    f"apply_resize: {key} differs from the checkpoint")
+        leaves = len(flat)
+        del tree, saved, flat, want
+
+        plain = copy.deepcopy(state)
+        on_mesh = train_state.distribute_state(state, train_state.state_shardings(
+            state, plan.mesh_ctx, run))
+        require(sharding.is_distributed(on_mesh.params.embed)
+                and sharding.is_distributed(on_mesh.opt.mu["embed"]),
+                "the state's tensors are DTensors on the mesh")
+        batch = train_batch(data, cfg, step)
+        ops.reset_launches()
+        loss0, _, grads0 = step_mod._grads(plain.params, cfg, run, batch)
+        torch.cuda.synchronize()
+        launches0 = dict(ops.LAUNCHES)
+        sharding.set_mesh_context(plan.mesh_ctx)
+        try:
+            ops.reset_launches()
+            loss1, _, grads1 = step_mod._grads(on_mesh.params, cfg, run, batch)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            expect = step_launches(cfg, 2)
+            require(launches == launches0 == expect,
+                    f"mesh step launches {launches}, without a mesh {launches0}, "
+                    f"expected {expect}")
+            loss1 = float(loss1.full_tensor())
+            rel = abs(loss1 - float(loss0)) / abs(float(loss0))
+            require(math.isfinite(loss1) and rel <= 1e-5,
+                    f"mesh step loss {loss1} against {float(loss0)}")
+            worst = 0.0
+            for name, g0 in grads0.items():
+                g1 = grads1[name].full_tensor()
+                scale = float(g0.float().abs().max())
+                err = float((g1.float() - g0.float()).abs().max())
+                require(bool(torch.isfinite(g1.float()).all()) and err <= PATH_GRAD_TOL * scale,
+                        f"mesh step: {name} gradient off by {err} against {scale}")
+                worst = max(worst, err / max(scale, 1e-30))
+            del grads0, grads1
+            step_fn = step_mod.make_train_step(cfg, run)
+            step_ms = []
+            holder = {"state": on_mesh}
+            for i in range(3):
+                b = train_batch(data, cfg, step + 1 + i)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                holder["state"], metrics = step_fn(holder["state"], b)
+                end.record()
+                torch.cuda.synchronize()
+                step_ms.append(start.elapsed_time(end))
+            b = train_batch(data, cfg, step + 4)
+
+            def one_step():
+                holder["state"], _ = step_fn(holder["state"], b)
+
+            busy, top = device_time(one_step, 1, inference=False)
+        finally:
+            sharding.set_mesh_context(None)
+        plain_ms = []
+        for i in range(3):
+            b = train_batch(data, cfg, step + 1 + i)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain, _ = step_fn(plain, b)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms.append(start.elapsed_time(end))
+        median = statistics.median(step_ms)
+        summary = {"model": SHARD_ARCH, "mesh": sharding.mesh_shape(mesh), "step": step,
+                   "restore_s": restore_s, "leaves": leaves, "run": {
+                       "seq_shard": run.seq_shard, "zero": run.zero, "fsdp": run.fsdp,
+                       "remat": run.remat},
+                   "loss_mesh": loss1, "loss_plain": float(loss0), "loss_rel": rel,
+                   "grad_rel_worst": worst, "tol": PATH_GRAD_TOL, "launches": launches,
+                   "step_ms": step_ms, "plain_step_ms": plain_ms,
+                   "tokens_per_s": BATCH * PROMPT_LEN / median * 1e3,
+                   "step_device_busy_ms": busy,
+                   "step_device_idle_share": None if busy is None else 1 - busy / median,
+                   "step_top_kernels_ms": top}
+        log(json.dumps({"mesh_step": summary}))
+        del state, plain, on_mesh, holder
+        torch.cuda.empty_cache()
+        return summary, launches
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(os.path.dirname(directory), ignore_errors=True)
+
+
+# (c): the tolerances of tests/test_torch_distributed.py's four-rank test:
+# loss and metrics to 1e-6 of themselves, gradients and moments to 1e-5 of
+# each tensor's largest element, parameters after AdamW to 2 learning rates.
+GLOO_MESHES = ("2x2", "1x4")
+GLOO_TOL = {"loss": 1e-6, "metric": 1e-6, "grad": 1e-5, "mu": 1e-5, "nu": 1e-5,
+            "param": 2.0, "step": 0.0}
+
+
+def gloo_meshes(port):
+    """Phase 12(c): ``tests/torch_mesh_worker.py`` on each of GLOO_MESHES
+    (four processes each, both meshes at once, every architecture), each
+    worker in a session of its own so that a timeout stops all its
+    processes. Returns a row per (mesh, architecture)."""
+    archs = sorted(port["configs"].list_archs())
+    out_dir = os.path.join(ROOT, "build", "gloo_meshes")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = {mesh: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tests", "torch_mesh_worker.py"), *mesh.split("x"),
+         os.path.join(out_dir, f"{mesh}.json"), *archs], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True) for mesh in GLOO_MESHES}
+    logs = {}
+    try:
+        for mesh, proc in procs.items():
+            logs[mesh] = proc.communicate(timeout=600)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    rows = []
+    for mesh, proc in procs.items():
+        require(proc.returncode == 0, f"gloo mesh {mesh}: exit {proc.returncode}\n"
+                                      f"{logs[mesh][-3000:]}")
+        with open(os.path.join(out_dir, f"{mesh}.json")) as f:
+            results = json.load(f)
+        for arch in archs:
+            r = results[arch]
+            require("error" not in r, f"gloo mesh {mesh}, {arch}:\n{r.get('error', '')[-3000:]}")
+            worst = {}
+            for key, v in r["errors"].items():
+                kind = key.split()[0]
+                worst[kind] = max(worst.get(kind, 0.0), v)
+            for kind, v in worst.items():
+                require(v <= GLOO_TOL[kind], f"gloo mesh {mesh}, {arch}: {kind} off by {v}, "
+                                             f"above {GLOO_TOL[kind]}")
+            require(r["placements"]["residual"] == ["(Shard(dim=0), Shard(dim=1))"],
+                    f"gloo mesh {mesh}, {arch}: the residual stream held "
+                    f"{r['placements']['residual']}")
+            row = {"mesh": mesh, "model": arch, "worst": worst, "tol": GLOO_TOL,
+                   "placements": r["placements"]}
+            rows.append(row)
+            log(json.dumps({"gloo_mesh": row}))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return rows
+
+
+def capacity_plan(port):
+    """Phase 12(b), arithmetic only: per architecture, the bytes of its whole
+    state (bf16 parameters, f32 moments) and of its weights, and each
+    device's share of ``state_shardings`` with ZeRO and FSDP on the 16 x 16
+    and 2 x 16 x 16 meshes (planning meshes: no device is touched)."""
+    cfg_mod, train_state, sharding, mesh_mod = (port["configs"], port["train_state"],
+                                                port["sharding"], port["mesh"])
+    meshes = {"16x16": (("data", 16), ("model", 16)),
+              "2x16x16": (("pod", 2), ("data", 16), ("model", 16))}
+    run = cfg_mod.RunConfig(zero=True, fsdp=True)
+    rows = []
+    for arch in sorted(cfg_mod.list_archs()):
+        state = train_state.abstract_train_state(cfg_mod.get_config(arch))
+        params = dict(state.params.named_parameters())
+        weights = sum(p.numel() * p.element_size() for p in params.values())
+        whole = weights + 2 * sum(m.numel() * 4 for m in state.opt.mu.values()) + 8
+        row = {"model": arch, "params": sum(p.numel() for p in params.values()),
+               "weights_bytes": weights, "state_bytes": whole, "per_device_bytes": {}}
+        for label, axes in meshes.items():
+            mesh = mesh_mod.AbstractMesh(axes)
+            ctx = sharding.MeshContext(mesh, data_axes=tuple(a for a, _ in axes[:-1]))
+            sh = train_state.state_shardings(state, ctx, run)
+            zero = [0] * len(axes)
+
+            def local(t, spec):
+                shape, _ = sharding.local_shape_and_offset(tuple(t.shape), mesh, spec, zero)
+                return math.prod(shape)
+
+            per_device = 8 + sum(local(p, sh.params[k].spec) * p.element_size()
+                                 for k, p in params.items())
+            per_device += sum(4 * (local(m, sh.opt.mu[k].spec) + local(m, sh.opt.nu[k].spec))
+                              for k, m in state.opt.mu.items())
+            row["per_device_bytes"][label] = per_device
+        rows.append(row)
+        log(json.dumps({"capacity": row}))
+        del state, params
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def port_modules():
@@ -2351,6 +2661,10 @@ def port_modules():
         "train_loop": importlib.import_module("repro_torch.launch.train"),
         "data": importlib.import_module("repro_torch.data"),
         "ckpt": importlib.import_module("repro_torch.checkpoint"),
+        "sharding": importlib.import_module("repro_torch.distributed.sharding"),
+        "mesh": importlib.import_module("repro_torch.launch.mesh"),
+        "elastic": importlib.import_module("repro_torch.launch.elastic"),
+        "specs": importlib.import_module("repro_torch.launch.specs"),
     }
 
 
@@ -2402,6 +2716,17 @@ def main() -> int:
     seconds.update(train_seconds)
     for k, v in train_launches.items():
         launches[k] += v
+    t0 = time.perf_counter()
+    _, mesh_launches = mesh_step(port)
+    seconds["sharding (a) mesh step"] = time.perf_counter() - t0
+    for k, v in mesh_launches.items():
+        launches[k] += v
+    t0 = time.perf_counter()
+    capacity_plan(port)
+    seconds["sharding (b) capacity plan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo_meshes(port)
+    seconds["sharding (c) gloo meshes"] = time.perf_counter() - t0
     log(json.dumps({"phase_seconds": seconds}))
 
     sources = {

@@ -116,30 +116,78 @@ def latest_checkpoint(directory) -> Optional[Path]:
     return ckpts[-1] if ckpts else None
 
 
-def restore_checkpoint(path, target_tree) -> Tuple[Any, int]:
+def restore_checkpoint(path, target_tree, shardings=None) -> Tuple[Any, int]:
     """Restore into the structure of ``target_tree``: each leaf in its
     target's dtype and on its device. Raises on a shape mismatch or a leaf
-    the checkpoint lacks."""
+    the checkpoint lacks.
+
+    ``shardings``: an optional tree of the same structure of
+    :class:`~repro_torch.distributed.sharding.NamedSharding` on a
+    ``DeviceMesh``; each leaf is then restored onto its placement, plain on
+    the mesh's device when the mesh has one device, else as a DTensor of
+    which each rank reads its own block of the leaf's file and nothing
+    else. The targets may then be ``meta`` tensors (shapes and dtypes only,
+    e.g. ``train.state.abstract_train_state``'s)."""
     path = Path(path)
     with open(path / "manifest.json") as f:
         manifest = json.load(f)
 
     flat_target = _flatten(target_tree)
+    flat_shard = _flatten(shardings) if shardings is not None else {}
     loaded = {}
     for key, meta in manifest["leaves"].items():
         if key not in flat_target:
             continue
-        t = _from_bytes((path / meta["file"]).read_bytes(), meta["dtype"], meta["shape"])
         tgt = flat_target[key]
-        if t.shape != tgt.shape:
+        if tuple(meta["shape"]) != tuple(tgt.shape):
             raise ValueError(f"shape mismatch for {key}: "
-                             f"ckpt {tuple(t.shape)} vs target {tuple(tgt.shape)}")
-        loaded[key] = t.to(device=tgt.device, dtype=tgt.dtype)
+                             f"ckpt {tuple(meta['shape'])} vs target {tuple(tgt.shape)}")
+        if key in flat_shard:
+            loaded[key] = _restore_sharded(path / meta["file"], meta, tgt.dtype,
+                                           flat_shard[key])
+        else:
+            t = _from_bytes((path / meta["file"]).read_bytes(), meta["dtype"], meta["shape"])
+            loaded[key] = t.to(device=tgt.device, dtype=tgt.dtype)
 
     missing = set(flat_target) - set(loaded)
     if missing:
         raise ValueError(f"checkpoint missing leaves: {sorted(missing)[:5]}...")
     return _rebuild(target_tree, loaded), manifest["step"]
+
+
+def _read_block(file: Path, dtype_name: str, shape, local, offset) -> torch.Tensor:
+    """The block of extent ``local`` at ``offset`` of a leaf's file, read
+    through a memory map, so that the rest of the file is not read."""
+    if not shape:
+        return _from_bytes(file.read_bytes(), dtype_name, shape)
+    if dtype_name not in DTYPES:
+        raise ValueError(f"checkpoint dtype {dtype_name!r} is not one of {sorted(DTYPES)}")
+    dtype = DTYPES[dtype_name]
+    np_dtype = np.int16 if dtype == torch.bfloat16 else torch.empty((), dtype=dtype).numpy().dtype
+    whole = np.memmap(file, dtype=np_dtype, mode="r", shape=tuple(shape))
+    block = torch.from_numpy(np.array(whole[tuple(slice(o, o + n)
+                                                  for o, n in zip(offset, local))]))
+    del whole
+    return block.view(torch.bfloat16) if dtype == torch.bfloat16 else block
+
+
+def _restore_sharded(file: Path, meta, dtype: torch.dtype, sharding) -> torch.Tensor:
+    """A leaf on its sharding: plain on a one-device mesh's device, else a
+    DTensor holding this rank's block alone."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import local_shape_and_offset, mesh_size, placements
+
+    mesh, shape = sharding.mesh, tuple(meta["shape"])
+    if mesh_size(mesh) == 1:
+        t = _from_bytes(file.read_bytes(), meta["dtype"], shape)
+        return t.to(device=mesh.device_type, dtype=dtype)
+    local, offset = local_shape_and_offset(shape, mesh, sharding.spec, mesh.get_coordinate())
+    block = _read_block(file, meta["dtype"], shape, local, offset)
+    return DTensor.from_local(block.to(device=mesh.device_type, dtype=dtype), mesh,
+                              placements(mesh, sharding.spec, shape), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 class AsyncCheckpointer:

@@ -169,7 +169,7 @@ class RunConfig:
     attention_impl: str = "chunked"  # flash | chunked | naive
     attention_chunk: int = 512
     loss_chunk: int = 0  # 0 = full logits; >0 = vocab-chunked CE over seq chunks
-    remat: str = "coarse"  # none | coarse | full
+    remat: str = "coarse"  # none | coarse | full | dots (matmul outputs saved)
     zero: bool = True  # shard optimizer state over the data axis
     fsdp: bool = False  # additionally shard parameters over the data axis
     grad_reduce: str = "reduce_scatter"  # all_reduce | reduce_scatter

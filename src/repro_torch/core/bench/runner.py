@@ -4,7 +4,7 @@ measured corpora everywhere else.
 The paper measures each kernel's cycles/iteration on the target machine and
 compares against the analytic bracket.  Where there is no x86/ARM hardware
 to execute on, the runner follows the same two-tier policy the instruction
-database uses (``repro.core.bench.ibench``, not ported yet):
+database uses (:mod:`repro_torch.core.bench.ibench`):
 
 * an injectable ``executor`` — a callable ``(asm, unroll) -> seconds per
   high-level iteration`` — measures live when the caller *can* execute the

@@ -34,6 +34,21 @@ What the lowering decides:
   applies unchanged.  A Python scalar a ``compare`` reads becomes a
   ``constant`` op beside it, so the trip count of ``i < 16`` is inferred as
   it is for XLA's text.  ``higher_order.cond`` becomes ``conditional``.
+* Ops XLA lowers to a chain print that chain: ``gelu`` (tanh) as
+  ``jax.nn.gelu``'s multiplies, adds and ``tanh``, (exact) as its ``erf``
+  and elementwise ops; ``leaky_relu`` as compare, multiply and select;
+  ``exp2`` as a multiply and ``exp``.  ``cumsum`` becomes ``reduce-window``,
+  ``sort``/``argsort``/``topk`` ``sort``, ``slice_scatter``
+  ``dynamic-update-slice``, ``index_put``/``scatter_add`` ``scatter``,
+  ``flip`` ``reverse``, ``constant_pad_nd`` ``pad``, and
+  ``native_layer_norm`` a ``fusion`` over its reduce / subtract / multiply
+  / rsqrt chain.
+* The functional collectives (``torch.distributed._functional_collectives``)
+  become ``all-reduce``, ``all-gather``, ``reduce-scatter`` and
+  ``all-to-all`` with ``replica_groups`` of their group's ranks, and
+  ``wait_tensor`` a free ``bitcast``.  The module carries ``num_partitions``
+  equal to the default group's world size, so the roofline's collective
+  term sees the program as one rank of it.
 * An ATen op outside the table keeps its name as its opcode: like an opcode
   the reference does not know, it counts 0 FLOPs, and its bytes are counted
   as any op's.  Those names are listed in ``module.unmapped``.
@@ -84,11 +99,32 @@ _OPCODES = {
     "zeros_like": "broadcast", "ones": "broadcast", "ones_like": "broadcast",
     "empty": "broadcast", "empty_like": "broadcast",
     "empty_strided": "broadcast", "fill": "broadcast",
+    "relu": "maximum", "hardtanh": "clamp", "flip": "reverse",
+    "constant_pad_nd": "pad", "cumsum": "reduce-window", "sort": "sort",
+    "argsort": "sort", "topk": "sort", "slice_scatter": "dynamic-update-slice",
+    "index_put": "scatter", "scatter_add": "scatter", "scatter": "scatter",
+    "scatter_reduce": "scatter", "index_add": "scatter",
 }
+# Elementwise chains XLA emits for one ATen op: (opcode, operand) steps,
+# each operand "x" (the op's input) or "prev" (the step before); a float is
+# a scalar constant.  The last step is the node's value.
+_GELU_TANH = (("multiply", "x", "x"), ("multiply", "prev", "x"),
+              ("multiply", "prev", 0.044715), ("add", "x", "prev"),
+              ("multiply", "prev", 0.7978845608028654), ("tanh", "prev"),
+              ("add", "prev", 1.0), ("multiply", "prev", 0.5),
+              ("multiply", "x", "prev"))
+_GELU_ERF = (("multiply", "x", 0.7071067811865476), ("erf", "prev"),
+             ("add", "prev", 1.0), ("multiply", "x", "prev"),
+             ("divide", "prev", 2.0))
+_EXP2 = (("multiply", "x", 0.6931471805599453), ("exp", "prev"))
+# _c10d_functional op -> HLO collective; the group name is the last arg.
+_COLLECTIVES = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
 # Views alias their input: free, as XLA's bitcast.
 _VIEWS = {"view", "_unsafe_view", "permute", "expand", "unsqueeze", "squeeze",
           "slice", "select", "alias", "t", "transpose", "split",
-          "split_with_sizes", "unbind", "as_strided"}
+          "split_with_sizes", "unbind", "as_strided", "wait_tensor"}
 _COMPARE = {"eq": "EQ", "ne": "NE", "lt": "LT", "le": "LE", "gt": "GT",
             "ge": "GE"}
 # Nodes that compute nothing (shape assertions).
@@ -132,6 +168,19 @@ def _nodes_in(args) -> List[fx.Node]:
         elif isinstance(a, (tuple, list)):
             out.extend(_nodes_in(a))
     return out
+
+
+def _group_ranks(group_name: str) -> List[int]:
+    """The global ranks of the process group a functional collective names."""
+    from torch.distributed.distributed_c10d import (_resolve_process_group,
+                                                    get_process_group_ranks)
+    return get_process_group_ranks(_resolve_process_group(group_name))
+
+
+def _num_partitions() -> int:
+    """The default group's world size; 1 without one."""
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def _literal(value) -> str:
@@ -259,6 +308,26 @@ class _Lowering:
             return [op("constant", [], args=_literal(node.args[0]))]
         if packet in _VIEWS:
             return [op("bitcast", operands[:1])]
+        if packet in _COLLECTIVES:
+            ranks = ",".join(str(r) for r in _group_ranks(node.args[-1]))
+            return [op(_COLLECTIVES[packet], operands[:1],
+                       f"replica_groups={{{{{ranks}}}}}")]
+        if packet == "gelu":
+            exact = node.kwargs.get("approximate", "none") == "none"
+            return self.chain(name, rtype, operands[0], _GELU_ERF if exact else _GELU_TANH)
+        if packet == "exp2":
+            return self.chain(name, rtype, operands[0], _EXP2)
+        if packet == "leaky_relu":
+            slope = node.args[1] if len(node.args) > 1 else 0.01
+            x, (dtype, dims) = operands[0].name, rtype.split("[", 1)
+            return [f"%{name}.zero = {dtype}[] constant(0)",
+                    f"%{name}.ge = pred[{dims} compare(%{x}, %{name}.zero), direction=GE",
+                    f"%{name}.slope = {dtype}[] constant({_literal(slope)})",
+                    f"%{name}.mul = {rtype} multiply(%{x}, %{name}.slope)",
+                    op("select", [], args=f"%{name}.ge, %{x}, %{name}.mul")]
+        if packet == "native_layer_norm":
+            return [op("fusion", operands, f"kind=kLoop, calls=%"
+                       f"{self.layer_norm(name, node)}")]
         if packet in ("_softmax", "_log_softmax"):
             return [op("fusion", operands[:1], f"kind=kLoop, calls=%"
                        f"{self.softmax(name, val, node.args[1], packet == '_log_softmax')}")]
@@ -292,6 +361,57 @@ class _Lowering:
         else:
             lines.append(f"ROOT %out = {rtype} divide(%exp, %sum)")
         self.computations.append(f"%{comp} (x: {rtype}) -> {rtype} {{\n  "
+                                 + "\n  ".join(lines) + "\n}\n")
+        return comp
+
+    @staticmethod
+    def chain(name: str, rtype: str, x: fx.Node, steps) -> List[str]:
+        """The ops of an elementwise chain (``_GELU_TANH``, ...) on ``x``, the
+        last one named ``name``; scalar operands become constants."""
+        dtype = rtype.split("[")[0]
+        lines, prev = [], None
+        for i, (opcode, *args) in enumerate(steps):
+            step = name if i == len(steps) - 1 else f"{name}.{i}"
+            ops = []
+            for j, a in enumerate(args):
+                if a == "x":
+                    ops.append(f"%{x.name}")
+                elif a == "prev":
+                    ops.append(f"%{prev}")
+                else:
+                    lines.append(f"%{step}.k{j} = {dtype}[] constant({_literal(a)})")
+                    ops.append(f"%{step}.k{j}")
+            lines.append(f"%{step} = {rtype} {opcode}({', '.join(ops)})")
+            prev = step
+        return lines
+
+    def layer_norm(self, name: str, node: fx.Node) -> str:
+        """The fused computation of ``native_layer_norm`` (out, mean, rstd)
+        over the normalized trailing dims, with its weight and bias when
+        given.  Returns its name."""
+        comp = self._comp_name(f"{name}.body")
+        x, shape, weight, bias = node.args[:4]
+        val = node.meta["val"]
+        xtype, mtype = _type(val[0]), _type(val[1])
+        params = [f"x: {xtype}"]
+        lines = [f"%x = {xtype} parameter(0)",
+                 f"%mean = {mtype} reduce(%x)",
+                 f"%centered = {xtype} subtract(%x, %mean)",
+                 f"%square = {xtype} multiply(%centered, %centered)",
+                 f"%var = {mtype} reduce(%square)",
+                 f"%rstd = {mtype} rsqrt(%var)",
+                 f"%norm = {xtype} multiply(%centered, %rstd)"]
+        out = "norm"
+        for i, (w, opcode) in enumerate(((weight, "multiply"), (bias, "add"))):
+            if isinstance(w, fx.Node):
+                wtype = _type(w.meta["val"])
+                params.append(f"w{i}: {wtype}")
+                lines += [f"%w{i} = {wtype} parameter({len(params) - 1})",
+                          f"%{opcode} = {xtype} {opcode}(%{out}, %w{i})"]
+                out = opcode
+        rtype = _type(list(val))
+        lines.append(f"ROOT %out = {rtype} tuple(%{out}, %mean, %rstd)")
+        self.computations.append(f"%{comp} ({', '.join(params)}) -> {rtype} {{\n  "
                                  + "\n  ".join(lines) + "\n}\n")
         return comp
 
@@ -337,7 +457,8 @@ def core_aten(ep: "torch.export.ExportedProgram") -> "torch.export.ExportedProgr
         for node in gm.graph.nodes:
             target = node.target
             if node.op == "call_function" and isinstance(target, torch._ops.OpOverload) \
-                    and torch.Tag.core not in target.tags and _packet(target) not in _SKIP:
+                    and torch.Tag.core not in target.tags and _packet(target) not in _SKIP \
+                    and target.namespace != "_c10d_functional":
                 return ep.run_decompositions()
     return ep
 
@@ -348,7 +469,8 @@ def lower_exported(ep: "torch.export.ExportedProgram",
     ep = core_aten(ep)
     lowering = _Lowering()
     lowering.computation(ep.graph_module, lowering._comp_name("main"), entry=True)
-    text = f"HloModule {name}\n\n" + "\n".join(lowering.computations)
+    header = f"HloModule {name}, num_partitions={_num_partitions()}"
+    text = header + "\n\n" + "\n".join(lowering.computations)
     module = parse_hlo(text)
     module.unmapped = tuple(lowering.unmapped)
     return module

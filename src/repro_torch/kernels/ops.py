@@ -17,6 +17,18 @@ traces ``flash_attention_plain``, a tiled Python loop, nor
 ``ssd_intra_chunk_plain``, whose bf16 path feeds its products as hi + lo
 terms (autograd would give ``lo`` a zero derivative): SSDChunkDual's
 backward is the gradient of the exact f32 function.
+
+A ``DTensor`` (the inputs of a model on a mesh) runs on its local shard: the
+wrapper takes ``to_local()``, calls the kernel (or its Function, whose
+backward then runs on the local shards too) and wraps the result with
+``DTensor.from_local`` under the input's placements. It does so only when
+the dims the kernel reduces over hold whole on every rank: the last dim for
+``fused_rmsnorm``; S, T and D for ``flash_attention`` and ``flash_decode``
+(batch and heads may be sharded, alike in q, k and v); Q, P and N for
+``ssd_chunk_dual`` (batch, chunks and heads may be sharded). Otherwise it
+raises: it never gathers a shard quietly and never falls back to the plain
+version. A weight or B/C replicated on a mesh dim over which the rows or
+heads are sharded gets a partial-sum gradient there.
 """
 
 from __future__ import annotations
@@ -46,6 +58,78 @@ def reset_launches() -> None:
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+# -- DTensors: local shards ------------------------------------------------------
+
+
+def _is_dtensor(*tensors) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in tensors)
+
+
+def _effective(t) -> tuple:
+    """``t``'s placements with those on size-1 mesh dims read as Replicate;
+    a pending (partial) sum on a larger dim raises."""
+    from torch.distributed.tensor import Replicate
+
+    out = []
+    for i, p in enumerate(t.placements):
+        if t.device_mesh.size(i) == 1:
+            out.append(Replicate())
+        elif p.is_partial():
+            raise ValueError(f"a kernel input holds a pending sum ({p}) on mesh dim {i}")
+        else:
+            out.append(p)
+    return tuple(out)
+
+
+def _whole(kernel: str, what: str, t, dims) -> None:
+    """Raise unless each of ``t``'s ``dims`` is whole on every rank."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        raise ValueError(f"{kernel}: {what} is a plain tensor beside DTensor inputs")
+    dims = {d % t.ndim for d in dims}
+    for i, p in enumerate(_effective(t)):
+        if p.is_shard() and p.dim % t.ndim in dims:
+            raise ValueError(f"{kernel}: dim {p.dim} of {what} {tuple(t.shape)} is sharded "
+                             f"over mesh dim {i}, and the kernel reduces over it; "
+                             f"redistribute it first")
+
+
+def _alike(kernel: str, what: str, a, b, dims_a, dims_b) -> None:
+    """Raise unless ``a``'s dims ``dims_a`` and ``b``'s ``dims_b`` are sharded
+    over the same mesh dims, pair for pair (other dims are free)."""
+    def which(p, t, dims):
+        return dims.index(p.dim % t.ndim) if p.is_shard() and p.dim % t.ndim in dims else None
+
+    for i, (pa, pb) in enumerate(zip(_effective(a), _effective(b))):
+        if which(pa, a, dims_a) != which(pb, b, dims_b):
+            raise ValueError(f"{kernel}: {what} are sharded differently over mesh dim {i} "
+                             f"({pa} against {pb}); redistribute them alike")
+
+
+def _partial_where(t, sharded_by) -> tuple:
+    """Gradient placements of ``t``'s local shard: a partial sum on each
+    mesh dim that shards ``sharded_by`` but not ``t``, else ``t``'s own."""
+    from torch.distributed.tensor import Partial
+
+    return tuple(Partial() if (pb.is_shard() and not pt.is_shard()) else pt
+                 for pt, pb in zip(_effective(t), _effective(sharded_by)))
+
+
+def _wrap(local: torch.Tensor, like, shape) -> "torch.Tensor":
+    from torch.distributed.tensor import DTensor
+
+    # The global stride given is a contiguous tensor's, so the shard must be.
+    return DTensor.from_local(local.contiguous(), like.device_mesh, like.placements,
+                              run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -126,6 +210,12 @@ class SSDChunkDual(torch.autograd.Function):
 def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
                   eps: float = 1e-5) -> torch.Tensor:
     """x (..., d) RMSNorm with learned scale w (d,)."""
+    if _is_dtensor(x, w):
+        _whole("fused_rmsnorm", "x", x, (-1,))
+        _whole("fused_rmsnorm", "w", w, (0,))
+        out = fused_rmsnorm(x.to_local(), w.to_local(grad_placements=_partial_where(w, x)),
+                            eps=eps)
+        return _wrap(out, x, x.shape)
     if _needs_grad(x, w):
         return FusedRMSNorm.apply(x, w, eps)
     return _rmsnorm(x, w, eps)
@@ -135,10 +225,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q (B,S,H,D); k/v (B,T,K,D) grouped-query -> (B,S,H,D)."""
+    if _is_dtensor(q, k, v):
+        for what, t in (("q", q), ("k", k), ("v", v)):
+            _whole("flash_attention", what, t, (1, 3))
+        _alike("flash_attention", "q and k", q, k, (0, 2), (0, 2))
+        _alike("flash_attention", "k and v", k, v, (0, 2), (0, 2))
+        out = flash_attention(q.to_local(), k.to_local(), v.to_local(), causal=causal,
+                              window=window, q_offset=q_offset, softcap=softcap)
+        return _wrap(out, q, q.shape)
     if _needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, q_offset, softcap)
     return _attention(q, k, v, dict(causal=causal, window=window, q_offset=q_offset,
                                      softcap=softcap))
+
+
+def _local_lengths(q, lengths: torch.Tensor) -> torch.Tensor:
+    """The rows of ``lengths`` (B,), a plain tensor, that ``q``'s local
+    shard holds."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local, offset = compute_local_shape_and_global_offset(q.shape, q.device_mesh,
+                                                          _effective(q))
+    return lengths[offset[0]:offset[0] + local[0]]
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -146,6 +254,14 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  softcap: float = 0.0) -> torch.Tensor:
     """q (B,1,H,D); k/v cache (B,T,K,D); lengths (B,) -> (B,1,H,D). One
     launch counts both passes (split and combine) of one call."""
+    if _is_dtensor(q, k_cache, v_cache):
+        for what, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+            _whole("flash_decode", what, t, (1, 3))
+        _alike("flash_decode", "q and k_cache", q, k_cache, (0, 2), (0, 2))
+        _alike("flash_decode", "k_cache and v_cache", k_cache, v_cache, (0, 2), (0, 2))
+        out = flash_decode(q.to_local(), k_cache.to_local(), v_cache.to_local(),
+                           _local_lengths(q, lengths), window=window, softcap=softcap)
+        return _wrap(out, q, q.shape)
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, lengths, window=window,
                                       softcap=softcap)
@@ -159,6 +275,19 @@ def ssd_chunk_dual(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,
                    cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD intra-chunk step: xdt (B,NC,H,Q,P) f32, cum (B,NC,H,Q)
     f32, B/C (B,NC,Q,N) -> (y (B,NC,H,Q,P) f32, states (B,NC,H,N,P) f32)."""
+    if _is_dtensor(xdt, cum, bm, cm):
+        kernel = "ssd_chunk_dual"
+        for what, t, dims in (("xdt", xdt, (3, 4)), ("cum", cum, (3,)),
+                              ("B", bm, (2, 3)), ("C", cm, (2, 3))):
+            _whole(kernel, what, t, dims)
+        _alike(kernel, "xdt and cum", xdt, cum, (0, 1, 2), (0, 1, 2))
+        _alike(kernel, "xdt and B", xdt, bm, (0, 1), (0, 1))
+        _alike(kernel, "B and C", bm, cm, (0, 1), (0, 1))
+        y, states = ssd_chunk_dual(xdt.to_local(), cum.to_local(),
+                                   bm.to_local(grad_placements=_partial_where(bm, xdt)),
+                                   cm.to_local(grad_placements=_partial_where(cm, xdt)))
+        return (_wrap(y, xdt, xdt.shape),
+                _wrap(states, xdt, (*xdt.shape[:3], bm.shape[3], xdt.shape[4])))
     if _needs_grad(xdt, cum, bm, cm):
         return SSDChunkDual.apply(xdt, cum, bm, cm)
     return _ssd(xdt, cum, bm, cm)

@@ -25,7 +25,9 @@ from repro_torch.models.transformer import Transformer
 
 def as_tensor(a: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """A tensor, or an array (bf16 ones through float32), on ``device`` in
-    ``dtype``."""
+    ``dtype``; a DTensor whole (its ``full_tensor``)."""
+    if hasattr(a, "full_tensor"):
+        a = a.full_tensor()
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=dtype)
     return torch.from_numpy(np.asarray(a).astype(np.float32)).to(device=device,
@@ -96,14 +98,17 @@ def _put(tree: Dict[str, Any], path: Sequence[str], leaf: Any) -> None:
     tree[path[-1]] = leaf
 
 
-def reference_tree(named: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict[str, Any]:
+def reference_tree(named: Mapping[str, Any], cfg: ModelConfig, *,
+                   stack: bool = True) -> Dict[str, Any]:
     """The inverse of ``params_from_jax``'s split: tensors under the port's
     parameter names (a model's ``named_parameters()``, or the optimizer
     moments keyed like them) as a nested dict in the reference's layout,
     e.g. ``layers/attn/wq`` (L, d, H*D) for the dense family, the layer
     axes of ``layers`` (and of the moe family's ``dense_layers``) stacked on
     the tensors' device ((G, every, ...) for hybrid ``layers`` leaves), and
-    of the audio family's ``enc_layers``."""
+    of the audio family's ``enc_layers``. Without ``stack`` the leaves are
+    values every layer shares (a stacked leaf's sharding), and a stacked
+    leaf takes its first layer's."""
     tree: Dict[str, Any] = {}
     per_layer: Dict[tuple, list] = {}
     for name, t in named.items():
@@ -113,6 +118,9 @@ def reference_tree(named: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict[
         else:
             _put(tree, parts, t)
     for path, items in per_layer.items():
+        if not stack:
+            _put(tree, path, min(items, key=lambda it: it[0])[1])
+            continue
         stacked = torch.stack([t for _, t in sorted(items, key=lambda it: it[0])])
         if cfg.family == "hybrid" and path[0] == "layers":
             stacked = stacked.reshape(-1, cfg.hybrid_attn_every, *stacked.shape[1:])

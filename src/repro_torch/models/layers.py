@@ -5,8 +5,9 @@ Functions over tensors and parameter modules, in the layouts of
 ``repro.models.layers``: activations (B,S,d), q (B,S,H,D), k/v (B,T,K,D).
 ``RunConfig.attention_impl == "flash"`` routes the norm and both attention
 paths through the kernels of ``repro_torch.kernels.ops``; ``chunked`` and
-``naive`` are eager mirrors of the reference. One device and no mesh, so the
-reference's sharding constraints have no counterpart here.
+``naive`` are eager mirrors of the reference. Activation sharding goes
+through ``repro_torch.distributed.constrain`` at the reference's points; it
+returns its input when no mesh is set.
 """
 
 from __future__ import annotations
@@ -18,8 +19,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import constrain, current_mesh
 from repro_torch.kernels import ops
 
+DATA = ("pod", "data")  # batch axes (sanitized away when the mesh lacks "pod")
+MODEL = "model"
 IMPLS = ("flash", "chunked", "naive")
 INIT_STD = 0.02
 
@@ -58,13 +62,37 @@ def uses_kernels(run) -> bool:
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
              kernel: bool = False) -> torch.Tensor:
     """RMSNorm in f32, cast back to x's dtype; ``kernel`` routes it through
-    ``ops.fused_rmsnorm``."""
+    ``ops.fused_rmsnorm``. On a mesh the scale is gathered whole first
+    (FSDP shards it over the data axes), as the kernel reduces over it."""
+    scale = constrain(scale, None)
     if kernel:
         return ops.fused_rmsnorm(x, scale, eps=eps)
     dtype = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
+
+
+def gather_sequence(x: torch.Tensor) -> torch.Tensor:
+    """x (B,S,...) with its sequence whole on every rank and its batch over
+    the data axes: sequence parallelism's all-gather before a block's
+    matmuls (Megatron-SP), which XLA inserts for the reference. A DTensor
+    flattens (B,S) into rows only where S is not sharded."""
+    return constrain(x, DATA, *([None] * (x.ndim - 1)))
+
+
+def split_heads(y: torch.Tensor, n: int, d: int, kv_heads: int) -> torch.Tensor:
+    """(B,T,n*d) -> (B,T,n,d) under the reference's (data, -, model, -)
+    constraint. On a mesh the heads stay sharded over the model axis only
+    where it divides ``kv_heads`` too, so that each rank holds the key and
+    value heads of its query heads, as the attention kernels need; else the
+    product is gathered over it first (a DTensor does not split a sharded
+    dim into pieces the mesh does not divide), and the heads stay whole."""
+    ctx = current_mesh()
+    heads = MODEL
+    if ctx is not None and kv_heads % ctx.model_size:
+        y, heads = constrain(y, DATA, None, None), None
+    return constrain(y.reshape(*y.shape[:2], n, d), DATA, None, heads, None)
 
 
 def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
@@ -242,12 +270,13 @@ def attention_block(
     b, s, _ = x.shape
     h, k_heads, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     kernel = uses_kernels(run)
-    kv_src = x if kv_x is None else kv_x
+    x = gather_sequence(x)
+    kv_src = x if kv_x is None else gather_sequence(kv_x)
     t = kv_src.shape[1]
 
-    q = (x @ params.wq).reshape(b, s, h, d)
-    kk = (kv_src @ params.wk).reshape(b, t, k_heads, d)
-    vv = (kv_src @ params.wv).reshape(b, t, k_heads, d)
+    q = split_heads(x @ params.wq, h, d, k_heads)
+    kk = split_heads(kv_src @ params.wk, k_heads, d, k_heads)
+    vv = split_heads(kv_src @ params.wv, k_heads, d, k_heads)
     if cfg.qk_norm:
         q = rms_norm(q, params.q_norm, cfg.norm_eps, kernel=kernel)
         kk = rms_norm(kk, params.k_norm, cfg.norm_eps, kernel=kernel)
@@ -282,8 +311,12 @@ def attention_block(
                                     causal=causal, window=cfg.window,
                                     softcap=cfg.attn_logit_softcap)
         new_kv = (kk, vv)
-    y = out.reshape(b, s, h * d) @ params.wo
-    return y, new_kv
+    out = constrain(out, DATA, None, MODEL, None)
+    # The merged heads pinned to the row-parallel layout wo's product
+    # takes, so that its gradient reaches the reshape in out's layout.
+    out = constrain(out.reshape(b, s, h * d), DATA, None, MODEL)
+    y = out @ params.wo
+    return constrain(y, DATA, None, None), new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -293,9 +326,11 @@ def attention_block(
 
 def mlp_block(params, x: torch.Tensor, act: str) -> torch.Tensor:
     """``params`` holds wi (d, 2*ff for swiglu, split [gate, up]) and wo."""
+    x = gather_sequence(x)
     if act == "swiglu":
-        gate, up = (x @ params.wi).chunk(2, dim=-1)
+        gate, up = constrain(x @ params.wi, DATA, None, MODEL).chunk(2, dim=-1)
         hidden = F.silu(gate) * up
     else:
         hidden = F.gelu(x @ params.wi, approximate="tanh")  # jax.nn.gelu
-    return hidden @ params.wo
+        hidden = constrain(hidden, DATA, None, MODEL)
+    return constrain(hidden @ params.wo, DATA, None, None)

@@ -7,8 +7,9 @@ With the kernel-backed run config (``attention_impl="flash"``) the
 intra-chunk part (each chunk's output and state) comes from
 ``ops.ssd_chunk_dual``; the recurrence stays here. ``chunked`` and ``naive``
 keep the reference's plain form. Decode is the O(1)-state recurrence and
-runs no kernel. One device and no mesh, so the reference's ``chunk_shard``
-and sharding constraints have no counterpart.
+runs no kernel. ``chunk_shard`` (``RunConfig.ssd_chunk_shard``) and the
+reference's sharding constraints are ``constrain`` calls at its points, which
+return their input when no mesh is set.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import constrain, current_mesh
+from repro_torch.distributed.sharding import is_distributed, on_local_shard
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamGroup, rms_norm
+from repro_torch.models.layers import DATA, MODEL, ParamGroup, gather_sequence, rms_norm
 
 # Heads per step of the plain intra-chunk form, which bounds its (B,nc,Q,Q,h)
 # decay tensor, as the reference's ``head_block`` default.
@@ -67,13 +70,15 @@ def _split_proj(proj: torch.Tensor, cfg):
     return z, xbc, dt
 
 
-def _intra_chunk_plain(xdt, cum, bc, cc):
+def _intra_chunk_plain(xdt, cum, bc, cc, chunk_shard: bool = False):
     """The reference's intra-chunk form, heads in blocks of ``HEAD_BLOCK``.
 
     xdt (B,nc,Q,H,P) f32, cum (B,nc,Q,H) f32, bc/cc (B,nc,Q,N). Returns
     y_intra (B,nc,Q,H,P) and the chunk states (B,nc,H,N,P), f32."""
     q, nh = xdt.shape[2], xdt.shape[3]
     scores = torch.einsum("bcin,bcjn->bcij", cc.float(), bc.float())  # (B,nc,Q,Q)
+    if chunk_shard:
+        scores = constrain(scores, DATA, MODEL, None, None)
     valid = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xdt.device))
     hb = next(c for c in range(min(HEAD_BLOCK, nh), 0, -1) if nh % c == 0)
     ys, states = [], []
@@ -93,14 +98,15 @@ def _intra_chunk_plain(xdt, cum, bc, cc):
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
-                h0: Optional[torch.Tensor] = None, *,
-                kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                h0: Optional[torch.Tensor] = None, *, kernel: bool = False,
+                chunk_shard: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.
 
     x: (B,S,H,P)  dt: (B,S,H)  A: (H,)  Bm/Cm: (B,S,N)
     h0: optional initial state (B,H,N,P).
     Returns (y (B,S,H,P), final state (B,H,N,P)), both in x's dtype.
-    ``kernel`` takes the intra-chunk part from ``ops.ssd_chunk_dual``.
+    ``kernel`` takes the intra-chunk part from ``ops.ssd_chunk_dual``;
+    ``chunk_shard`` constrains the chunk dim over the model axis.
     """
     b, s, nh, p = x.shape
     n = Bm.shape[-1]
@@ -112,9 +118,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         y, h_last = ssd_chunked(
             F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), A,
             F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad)),
-            chunk, h0, kernel=kernel)
+            chunk, h0, kernel=kernel, chunk_shard=chunk_shard)
         return y[:, :s], h_last
     nc = s // q
+    ctx, x_in = current_mesh(), x
+    on_mesh = chunk_shard and ctx is not None and is_distributed(x)
+    if on_mesh and nc % ctx.model_size:
+        # The sequence, sharded over the model axis, splits into chunks
+        # sharded over it only where it divides nc: gather it first.
+        x, dt, Bm, Cm = (gather_sequence(t) for t in (x, dt, Bm, Cm))
 
     xc = x.reshape(b, nc, q, nh, p)
     dtc = dt.reshape(b, nc, q, nh).float()
@@ -122,15 +134,32 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cc = Cm.reshape(b, nc, q, n)
 
     dA = dtc * A.float()  # (B,nc,Q,H), negative
-    cum = torch.cumsum(dA, dim=2)  # inclusive cumulative log-decay
+    # Inclusive cumulative log-decay; on a mesh over the local chunks
+    # (DTensor of torch 2.11 has no rule for the flip of cumsum's backward).
+    cum = on_local_shard(lambda t: torch.cumsum(t, dim=2), dA, (2,), "cumsum")
     xdt = xc.float() * dtc[..., None]  # (B,nc,Q,H,P) f32
+    if chunk_shard:
+        # The intra-chunk dual form is chunk-parallel: shard the chunk dim
+        # over the model axis so the (Q,Q,head) decay tensors divide by it.
+        cum = constrain(cum, DATA, MODEL, None, None)
+        xdt = constrain(xdt, DATA, MODEL, None, None, None)
+        bc = constrain(bc, DATA, MODEL, None, None)
+        cc = constrain(cc, DATA, MODEL, None, None)
 
     if kernel:
         y_h, chunk_states = ops.ssd_chunk_dual(xdt.permute(0, 1, 3, 2, 4),
                                                cum.permute(0, 1, 3, 2), bc, cc)
         y_intra = y_h.permute(0, 1, 3, 2, 4)  # (B,nc,Q,H,P)
     else:
-        y_intra, chunk_states = _intra_chunk_plain(xdt, cum, bc, cc)
+        y_intra, chunk_states = _intra_chunk_plain(xdt, cum, bc, cc, chunk_shard)
+    if chunk_shard:
+        y_intra = constrain(y_intra, DATA, MODEL, None, None, None)
+        chunk_states = constrain(chunk_states, DATA, MODEL, None, None, None)
+    if on_mesh:
+        # The recurrence over the chunks and its products flatten (B, nc),
+        # which a DTensor does only where nc is whole: whole from here on.
+        y_intra, chunk_states, cum, cc = (gather_sequence(t)
+                                          for t in (y_intra, chunk_states, cum, cc))
     chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nc,H)
 
     # Inter-chunk recurrence: h_prevs[c] is the state entering chunk c.
@@ -146,24 +175,33 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y_inter = torch.matmul(cc.float()[:, :, None], h_prev)  # (B,nc,H,Q,P)
     y_inter = y_inter.permute(0, 1, 3, 2, 4) * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(b, s, nh, p)
+    if on_mesh:
+        # Back in x's layout, so that the gradient reaches the reshape in
+        # the layout it left it.
+        y = y.redistribute(x_in.device_mesh, x_in.placements)
     return y.to(x.dtype), h.to(x.dtype)
 
 
 def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = False,
                 ssm_state: Optional[torch.Tensor] = None,
                 conv_state: Optional[torch.Tensor] = None,
-                single_step: bool = False
+                single_step: bool = False, chunk_shard: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Mamba-2 block. x: (B,S,d) -> (y, ssm_state, conv_state).
 
     ``single_step=True`` runs the O(1) decode recurrence (S must be 1).
     ``kernel`` routes ``ssd_chunked`` and the gated norm through the
-    kernel-backed ops. The states are returned in x's dtype.
+    kernel-backed ops. ``chunk_shard`` keeps the block sequence-sharded over
+    the model axis. The states are returned in x's dtype.
     """
     b, s, _ = x.shape
     di, n, nh, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
 
-    proj = x @ params.in_proj
+    proj = gather_sequence(x) @ params.in_proj
+    if chunk_shard and not single_step:
+        proj = constrain(proj, DATA, MODEL, None)
+    else:
+        proj = constrain(proj, DATA, None, MODEL)
     z, xbc, dt_raw = _split_proj(proj, cfg)
     xbc, conv_state = _causal_conv(xbc, params.conv_w, conv_state)
     xs = xbc[..., :di].reshape(b, s, nh, p)
@@ -184,9 +222,12 @@ def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = Fals
         ssm_state = h_new.to(x.dtype)
     else:
         y, ssm_state = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, ssm_state,
-                                   kernel=kernel)
+                                   kernel=kernel, chunk_shard=chunk_shard)
 
     y = y + params.D.to(x.dtype)[None, None, :, None] * xs
     y = y.reshape(b, s, di)
     y = rms_norm(y * F.silu(z), params.ssm_norm, cfg.norm_eps, kernel=kernel)
-    return y @ params.out_proj, ssm_state, conv_state
+    # The sequence whole before the rows flatten (it is sharded under
+    # ``chunk_shard``).
+    y = gather_sequence(y) @ params.out_proj
+    return constrain(y, DATA, None, None), ssm_state, conv_state

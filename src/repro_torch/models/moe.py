@@ -14,9 +14,10 @@ Phi-3.5-MoE's (16 routed, top 2).
 The top k breaks ties as ``jax.lax.top_k`` does, lower expert index first:
 it takes the first k of a stable descending sort (``torch.topk`` promises no
 order for ties, and the order decides which token gets a slot). The expert
-GEMMs are batched products, as in the reference, outside any kernel. One
-device and no mesh, so the reference's ``constrain`` calls have no
-counterpart.
+GEMMs are batched products, as in the reference, outside any kernel. The
+reference's sharding constraints are ``constrain`` calls at the same points
+(groups over the data axes, experts over the model axis); without a mesh
+they return their input.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamGroup
+from repro_torch.distributed import constrain
+from repro_torch.models.layers import DATA, MODEL, ParamGroup, gather_sequence
 
 
 class MoE(ParamGroup):
@@ -128,7 +130,9 @@ def _moe_gather_dispatch(params: MoE, xg: torch.Tensor, cfg, capacity: int):
 
     expert_in = xg[torch.arange(g, device=xg.device)[:, None, None], slot_token]  # (G,E,C,d)
     expert_in = (expert_in * slot_fill[..., None]).transpose(0, 1)  # (E,G,C,d)
-    expert_out = _expert_ffn(params, expert_in).transpose(0, 1)  # (G,E,C,d)
+    expert_in = constrain(expert_in, MODEL, DATA, None, None)
+    expert_out = constrain(_expert_ffn(params, expert_in), MODEL, DATA, None, None)
+    expert_out = expert_out.transpose(0, 1)  # (G,E,C,d)
 
     flat = expert_out.reshape(g, e * capacity, d)
     slot_of_token = topk_idx * capacity + torch.clamp(pos, max=capacity - 1)
@@ -140,12 +144,13 @@ def _moe_gather_dispatch(params: MoE, xg: torch.Tensor, cfg, capacity: int):
 def moe_block(params: MoE, x: torch.Tensor, cfg,
               dispatch_mode: str = "einsum") -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (y (B,S,d), aux loss). Shared experts run densely."""
+    x = gather_sequence(x)
     b, s, d = x.shape
     e = cfg.moe_experts
     group = min(cfg.moe_group_size, b * s)
     while (b * s) % group != 0:  # largest group size dividing the token count
         group -= 1
-    xg = x.reshape((b * s) // group, group, d)
+    xg = constrain(x.reshape((b * s) // group, group, d), DATA, None, None)
     capacity = max(int(math.ceil(cfg.moe_top_k * group * cfg.moe_capacity_factor / e)), 1)
 
     if dispatch_mode == "gather":
@@ -153,10 +158,18 @@ def moe_block(params: MoE, x: torch.Tensor, cfg,
     else:  # the reference runs the einsum path for any mode but "gather"
         logits = torch.einsum("gsd,de->gse", xg, params.router)
         dispatch, combine, aux = route_topk(logits, cfg.moe_top_k, capacity)
-        expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xg)
-        expert_out = _expert_ffn(params, expert_in)
-        yg = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
+        dispatch = constrain(dispatch.to(x.dtype), DATA, None, MODEL, None)
+        combine = constrain(combine.to(x.dtype), DATA, None, MODEL, None)
+        expert_in = constrain(torch.einsum("gsec,gsd->egcd", dispatch, xg),
+                              MODEL, DATA, None, None)
+        expert_out = constrain(_expert_ffn(params, expert_in), MODEL, DATA, None, None)
+        # The combine contracts the expert dim, which a DTensor (torch 2.11)
+        # cannot flatten sharded: on a mesh the experts whole first.
+        yg = torch.einsum("gsec,egcd->gsd", constrain(combine, DATA, None, None, None),
+                          constrain(expert_out, None, DATA, None, None))
     y = yg.reshape(b, s, d)
     if cfg.moe_shared > 0:
         y = y + _swiglu(x, params.shared_wi, params.shared_wo)
-    return y, aux
+    # aux replicated: on a mesh it is a pending mean over the groups, which
+    # DTensor (torch 2.11) cannot add to the loss's pending sum.
+    return constrain(y, DATA, None, None), constrain(aux)

@@ -26,14 +26,16 @@ from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import Device, resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed import constrain, current_mesh, set_mesh_context
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (INIT_STD, ParamGroup, attention_block,
-                                       decode_attention, mlp_block, rms_norm,
+from repro_torch.models.layers import (DATA, INIT_STD, MODEL, ParamGroup, attention_block,
+                                       decode_attention, gather_sequence, mlp_block, rms_norm,
                                        sinusoidal_positions, uses_kernels)
 from repro_torch.models.mamba2 import MambaBlock, mamba_block
 from repro_torch.models.moe import MoE, moe_block
@@ -200,6 +202,21 @@ def _cross_params(lp: DenseBlock) -> SimpleNamespace:
     return SimpleNamespace(wq=c.cross_wq, wk=c.cross_wk, wv=c.cross_wv, wo=c.cross_wo)
 
 
+def _seq_constrain(x, run: RunConfig):
+    """Sequence-parallel residual stream under ``run.seq_shard`` (the
+    reference's Megatron-SP), else batch over the data axes."""
+    if run.seq_shard:
+        return constrain(x, DATA, MODEL, None)
+    return constrain(x, DATA, None, None)
+
+
+def _residual(x, h, run: RunConfig):
+    """x + h in the residual stream's layout, h brought to it first (under
+    ``run.seq_shard``, sequence parallelism's reduce-scatter): on a mesh
+    the add's gradient then reaches h's producer in h's own layout."""
+    return _seq_constrain(x + _seq_constrain(h, run), run)
+
+
 def dense_block(lp: DenseBlock, x, cfg, run, positions, kv_cache=None,
                 cache_pos=None, causal=True, use_rope=True, enc_out=None):
     """One pre-norm transformer block (+ cross-attention on ``enc_out``, the
@@ -208,15 +225,15 @@ def dense_block(lp: DenseBlock, x, cfg, run, positions, kv_cache=None,
     h, kv = attention_block(lp.attn, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
                             cfg, run, positions, kv_cache=kv_cache,
                             cache_pos=cache_pos, causal=causal, use_rope=use_rope)
-    x = x + h
+    x = _residual(x, h, run)
     if enc_out is not None:
         h, _ = attention_block(_cross_params(lp),
                                rms_norm(x, lp.norm3, cfg.norm_eps, kernel=kernel),
                                cfg, run, positions, kv_x=enc_out, causal=False,
                                use_rope=False)
-        x = x + h
+        x = _residual(x, h, run)
     h = mlp_block(lp.mlp, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg.act)
-    return x + h, kv
+    return _residual(x, h, run), kv
 
 
 def moe_layer_block(lp: MoELayer, x, cfg, run, positions, kv_cache=None,
@@ -225,10 +242,10 @@ def moe_layer_block(lp: MoELayer, x, cfg, run, positions, kv_cache=None,
     kernel = uses_kernels(run)
     h, kv = attention_block(lp.attn, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
                             cfg, run, positions, kv_cache=kv_cache, cache_pos=cache_pos)
-    x = x + h
+    x = _residual(x, h, run)
     h, aux = moe_block(lp.moe, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg,
                        dispatch_mode=run.moe_dispatch)
-    return x + h, kv, aux
+    return _residual(x, h, run), kv, aux
 
 
 def mamba_layer(lp: MambaLayer, x, cfg, run, ssm_state=None, conv_state=None,
@@ -237,8 +254,9 @@ def mamba_layer(lp: MambaLayer, x, cfg, run, ssm_state=None, conv_state=None,
     kernel = uses_kernels(run)
     y, ssm, conv = mamba_block(lp.mamba, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
                                cfg, kernel=kernel, ssm_state=ssm_state,
-                               conv_state=conv_state, single_step=single_step)
-    return x + y, ssm, conv
+                               conv_state=conv_state, single_step=single_step,
+                               chunk_shard=run.ssd_chunk_shard)
+    return _residual(x, y, run), ssm, conv
 
 
 def hybrid_shared_block(params: Transformer, x, x0, inv_proj, cfg, run, positions,
@@ -252,17 +270,22 @@ def hybrid_shared_block(params: Transformer, x, x0, inv_proj, cfg, run, position
                             cache_pos=cache_pos, cache_fill=cache_fill)
     m = mlp_block(params.shared_mlp,
                   rms_norm(xin, params.shared_norm2, cfg.norm_eps, kernel=kernel), cfg.act)
-    return x + (h + m) @ inv_proj, kv
+    return _residual(x, (h + m) @ inv_proj, run), kv
 
 
 def embed_tokens(params: Transformer, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens]
+    """The rows of ``embed`` (the reference's ``embed[tokens]``). On a mesh
+    the table is gathered whole first and looked up by ``F.embedding``:
+    DTensor's rules for a sharded table's lookup and for indexing with
+    sharded tokens fail (a mask of the local tokens' shape; a Shard(-1) in
+    torch 2.11's ``index_put``)."""
+    return constrain(F.embedding(tokens, constrain(params.embed, None, None)), DATA, None, None)
 
 
 def lm_logits(params: Transformer, cfg, x: torch.Tensor) -> torch.Tensor:
     """f32 logits over the padded vocabulary; padding columns are -1e30."""
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = x.float() @ head.float()
+    logits = constrain(gather_sequence(x).float() @ head.float(), DATA, None, MODEL)
     if cfg.padded_vocab != cfg.vocab:  # mask vocabulary padding
         logits[..., cfg.vocab:] = -1e30
     return logits
@@ -273,31 +296,59 @@ def lm_logits(params: Transformer, cfg, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# The matmuls whose outputs "dots" keeps, as ``jax.checkpoint_policies.
+# dots_saveable`` keeps every dot's.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    cp = torch.utils.checkpoint.CheckpointPolicy
+    return cp.MUST_SAVE if op in _DOTS else cp.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(_save_dots)
+
+
 def _remat(fn, run: RunConfig):
     """The reference's ``_remat``: unless ``run.remat`` is "none", ``fn`` runs
-    under non-reentrant activation checkpointing, which keeps none of its
-    activations and runs its forward again in backward (so a kernel inside
-    it launches twice a step). The numbers do not change. The reference's
-    "dots" policy, which keeps the matmul outputs, recomputes everything
-    here."""
+    under non-reentrant activation checkpointing. "full" and "coarse" keep
+    none of its activations and run its forward again in backward (so a
+    kernel inside it launches twice a step); "dots" keeps the outputs of its
+    matmuls (``aten.mm``, ``bmm``, ``addmm``, ``baddbmm``) and recomputes the
+    rest, the kernels included. The numbers do not change. The recompute
+    runs under the mesh context of the forward: autograd runs a CUDA
+    backward on a thread of its own, where the (thread-local) context is
+    not set."""
     if run.remat == "none":
         return fn
+    kw = dict(context_fn=_dots_context) if run.remat == "dots" else {}
 
     def checkpointed(*args):
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        ctx = current_mesh()
+
+        def under_ctx(*inner):
+            outer = current_mesh()
+            set_mesh_context(ctx)
+            try:
+                return fn(*inner)
+            finally:
+                set_mesh_context(outer)
+
+        return torch.utils.checkpoint.checkpoint(under_ctx, *args, use_reentrant=False, **kw)
 
     return checkpointed
 
 
-
-
-def _embed(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+def _embed(params: Transformer, cfg: ModelConfig, run: RunConfig, tokens: torch.Tensor,
            frontend: Optional[torch.Tensor]):
     """Token embeddings (B,S,d), a vlm's frontend (B,F,d) before them when
     given (so S grows to F + S), and their positions."""
     x = embed_tokens(params, cfg, tokens)
     if cfg.family == "vlm" and frontend is not None:
         x = torch.cat([frontend.to(x.dtype), x], dim=1)
+    x = _seq_constrain(x, run)
     b, s, _ = x.shape
     return x, torch.arange(s, device=x.device)[None].expand(b, s)
 
@@ -312,6 +363,7 @@ def _encode(params: Transformer, cfg: ModelConfig, run: RunConfig,
         raise ValueError(f"{cfg.name} needs its (B, F, d) frame embeddings (frontend)")
     enc = frontend.to(dtype)
     enc = enc + sinusoidal_positions(enc.shape[1], cfg.d_model, enc.device).to(dtype)
+    enc = _seq_constrain(enc, run)
 
     def layer(lp, e):
         return dense_block(lp, e, cfg, run, None, causal=False, use_rope=False)[0]
@@ -341,7 +393,7 @@ def forward_train(params: Transformer, cfg: ModelConfig, run: RunConfig,
     group, so its gradient sums over the groups; an audio model's encoder
     output likewise enters every decoder layer). The logits are left to the
     loss, which may chunk over the sequence."""
-    x, positions = _embed(params, cfg, tokens, frontend)
+    x, positions = _embed(params, cfg, run, tokens, frontend)
     extras: Dict[str, Any] = {}
 
     def dense(lp, x):
@@ -405,7 +457,7 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,
     (B,K-1,C)) states of every Mamba layer in order.
     """
     extras: Dict[str, Any] = {}
-    x, positions = _embed(params, cfg, tokens, frontend)
+    x, positions = _embed(params, cfg, run, tokens, frontend)
     kvs, states, dense_kvs = [], [], []
     if cfg.family in ("dense", "vlm"):
         for lp in params.layers:

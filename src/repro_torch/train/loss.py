@@ -8,6 +8,9 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed import constrain
+from repro_torch.models.layers import DATA, MODEL, gather_sequence
+
 NEG_INF = -1e30
 
 
@@ -21,8 +24,10 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor,
         cols = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(cols[None, :] < vocab, logits,
                              torch.tensor(NEG_INF, device=logits.device))
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, 1, labels[:, None].long())[:, 0]
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    # (N, 1) kept whole: on a vocabulary-sharded DTensor the gather is a
+    # masked partial sum whose mask has this shape.
+    picked = torch.gather(logits, 1, labels[:, None].long())
     loss_sum = torch.sum(lse - picked)
     acc = torch.sum(torch.argmax(logits, dim=-1) == labels)
     return loss_sum, acc
@@ -36,15 +41,16 @@ def cross_entropy_loss(hidden: torch.Tensor, head: torch.Tensor, labels: torch.T
     ``vocab`` is the true vocabulary when the head is padded."""
     b, s, d = hidden.shape
     n = b * s
-    h2 = hidden.reshape(n, d)
+    h2 = gather_sequence(hidden).reshape(n, d)
     l2 = labels.reshape(n)
     head32 = head.float()
     if chunk <= 0 or n % chunk != 0 or n <= chunk:
-        loss_sum, acc = _ce(h2.float() @ head32, l2, vocab)
+        loss_sum, acc = _ce(constrain(h2.float() @ head32, DATA, MODEL), l2, vocab)
         return loss_sum / n, acc / n
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     acc = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, n, chunk):
-        ls, ac = _ce(h2[i:i + chunk].float() @ head32, l2[i:i + chunk], vocab)
+        logits = constrain(h2[i:i + chunk].float() @ head32, DATA, MODEL)
+        ls, ac = _ce(logits, l2[i:i + chunk], vocab)
         loss_sum, acc = loss_sum + ls, acc + ac
     return loss_sum / n, acc / n

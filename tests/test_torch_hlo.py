@@ -367,9 +367,9 @@ def test_from_hlo_takes_an_exported_program():
     assert max(report.lcd_chains, key=lambda c: c.length).carried_by == 1
 
 
-class WithCumsum(torch.nn.Module):
+class WithTrunc(torch.nn.Module):
     def forward(self, x):
-        return torch.cumsum(x, 0) * 2
+        return torch.trunc(x) * 2
 
 
 class WithCond(torch.nn.Module):
@@ -385,17 +385,18 @@ def test_opcode_table_names_opcodes_the_cost_model_knows():
     from repro_torch.core.hlo import export
 
     costed = ref_costs._ELEMENTWISE | ref_costs._TRANSCENDENTAL | ref_costs._FREE | {
-        "reduce", "gather", "dot", "convolution", "fusion", "while", "conditional"}
-    zero_flops = {"copy", "convert", "concatenate", "broadcast"}
+        "reduce", "gather", "dot", "convolution", "fusion", "while", "conditional",
+        "reduce-window", "sort", "scatter", "dynamic-update-slice"}
+    zero_flops = {"copy", "convert", "concatenate", "broadcast", "reverse", "pad"}
     assert set(export._OPCODES.values()) <= costed | zero_flops
     assert "compare" in ref_costs._ELEMENTWISE and "bitcast" in ref_costs._FREE
     assert not export._VIEWS & set(export._OPCODES)
 
 
 def test_unmapped_op_keeps_its_name_and_counts_no_flops():
-    module = lower_exported(torch.export.export(WithCumsum(), (torch.ones(4, 4),)))
-    assert module.unmapped == ("aten.cumsum.default",)
-    (op,) = [op for op in module.entry.ops if op.opcode == "cumsum"]
+    module = lower_exported(torch.export.export(WithTrunc(), (torch.ones(4, 4),)))
+    assert module.unmapped == ("aten.trunc.default",)
+    (op,) = [op for op in module.entry.ops if op.opcode == "trunc"]
     cost = PortCost(module, H100_SXM)
     assert cost.op_flops(op, module.entry) == 0.0
     assert cost.op_bytes(op, module.entry) == 2 * 16 * 4
@@ -435,13 +436,13 @@ class Forward(torch.nn.Module):
 # a new op as 0 FLOPs.
 TINY_OPS = {
     32: {"_assert_tensor_metadata", "_to_copy", "add", "amax", "arange", "bmm", "cat",
-         "clamp", "clone", "cos", "div", "exp", "expand", "full", "gt", "index",
+         "clamp", "clone", "cos", "div", "embedding", "exp", "expand", "full", "gt",
          "maximum", "mean", "mm", "mul", "permute", "pow", "reciprocal", "rsqrt",
          "scalar_tensor", "sigmoid", "sin", "slice", "split_with_sizes", "sub", "sum",
          "unsqueeze", "view", "where"},
     37: {"_assert_tensor_metadata", "_softmax", "_to_copy", "add", "arange",
-         "bitwise_and", "bitwise_not", "bmm", "cat", "clone", "cos", "div", "expand",
-         "full", "index", "le", "mean", "mm", "mul", "permute", "pow", "reciprocal",
+         "bitwise_and", "bitwise_not", "bmm", "cat", "clone", "cos", "div", "embedding",
+         "expand", "full", "le", "mean", "mm", "mul", "permute", "pow", "reciprocal",
          "rsqrt", "scalar_tensor", "sigmoid", "sin", "split_with_sizes", "sub",
          "unsqueeze", "view", "where"},
 }

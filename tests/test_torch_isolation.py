@@ -60,7 +60,10 @@ def test_module_list_covers_the_slice():
                  "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.ckpt", "repro_torch.models.convert",
                  "repro_torch.launch.ft", "repro_torch.launch.train",
-                 "repro_torch.models.moe", "repro_torch.models.layers"):
+                 "repro_torch.models.moe", "repro_torch.models.layers",
+                 "repro_torch.distributed", "repro_torch.distributed.sharding",
+                 "repro_torch.launch.mesh", "repro_torch.launch.elastic",
+                 "repro_torch.launch.specs"):
         assert name in MODULES
 
 
@@ -231,3 +234,42 @@ def test_chip_smoke_fails_alone(tmp_path):
                           text=True, timeout=120, cwd=tmp_path, env=env)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_mesh_entry_points_raise_without_a_card():
+    """On a started (one-rank gloo) group, a mesh, a resize plan and a
+    restore onto it are built on the card unless the CPU is named; a
+    planning mesh beyond the group needs no device."""
+    _needs_no_card()
+    code = ("import tempfile\n"
+            "import torch, torch.distributed as dist\n"
+            "from repro_torch.configs import RunConfig, get_config, tiny_variant\n"
+            "from repro_torch.checkpoint import save_checkpoint\n"
+            "from repro_torch.launch.elastic import apply_resize, plan_resize\n"
+            "from repro_torch.launch.mesh import AbstractMesh, make_elastic_mesh_context\n"
+            "from repro_torch.train.state import init_train_state, state_tree\n"
+            "dist.init_process_group('gloo', store=dist.HashStore(), rank=0, world_size=1)\n"
+            "try:\n"
+            "    cfg = tiny_variant(get_config('tinyllama-1.1b'))\n"
+            "    d = tempfile.mkdtemp()\n"
+            "    save_checkpoint(d, 1, state_tree(init_train_state(cfg, device='cpu'), cfg))\n"
+            "    plan = plan_resize(1, 1, 8, 1e-3, device='cpu')\n"
+            "    calls = [lambda: make_elastic_mesh_context(1),\n"
+            "             lambda: plan_resize(1, 1, 8, 1e-3),\n"
+            "             lambda: apply_resize(plan, cfg, RunConfig(), d)]\n"
+            "    for fn in calls:\n"
+            "        try:\n"
+            "            fn()\n"
+            "        except RuntimeError as exc:\n"
+            "            assert 'no CUDA device' in str(exc), exc\n"
+            "        else:\n"
+            "            raise SystemExit('ran on the CPU without being asked')\n"
+            "    assert isinstance(make_elastic_mesh_context(8).mesh, AbstractMesh)\n"
+            "    state, step = apply_resize(plan, cfg, RunConfig(), d, device='cpu')\n"
+            "    assert step == 1 and state.params.embed.device.type == 'cpu'\n"
+            "finally:\n"
+            "    dist.destroy_process_group()\n"
+            "print('RAISED')\n")
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    assert "RAISED" in proc.stdout
