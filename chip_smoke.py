@@ -133,7 +133,22 @@ the repository is not beside it). It
    (``tests/torch_mesh_worker.py``): the residual stream sharded over batch
    and sequence, the loss, gradients and AdamW step held to the step
    without a mesh with ``tests/test_torch_distributed.py``'s tolerances;
-13. prints each phase's seconds, a JSON line of per-kernel numbers and,
+13. dry-runs: (a) ``python -m repro_torch.launch.dryrun --jobs 4`` on the
+   host, each cell in a process of its own on a 256-rank (16 x 16) fake
+   group with the card's device type, traces tinyllama-1.1b's train_4k,
+   prefill_32k and decode_32k cells and mamba2-130m's long_500k for one
+   rank at full size (yi-9b's long_500k must print SKIP), then
+   ``roofline_table`` reads the rows; each row's TC / HBM / NVLink terms,
+   dominant port, memory estimate, collectives by opcode and trace seconds
+   are printed, and a failed cell or an unmapped op fails the phase; (b)
+   beside it, on a one-rank NCCL group and a 1 x 1 mesh, the dry run
+   traces phase 11's tinyllama-1.1b step (bf16, 4 x 512 tokens) under its
+   own run config (``chunked``, remat "full", ZeRO, FSDP, sequence
+   sharding), then the step runs on the card: the traced arguments' bytes
+   must equal the live state's and batch's, and the measured step at
+   least the traced roofline's bound; the allocator's peak is printed
+   beside the traced arg + temp + out bytes;
+14. prints each phase's seconds, a JSON line of per-kernel numbers and,
    last, the JSON result line.
 
 Any failed check raises, so the script exits non-zero before the last line.
@@ -2625,6 +2640,160 @@ def capacity_plan(port):
     return rows
 
 
+# Phase 13(a): the dry run's cells, four processes at a time, the longest
+# first; yi-9b's long_500k is a documented skip.
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b", "prefill_32k"),
+                ("tinyllama-1.1b", "decode_32k"), ("mamba2-130m", "long_500k"),
+                ("yi-9b", "long_500k"))
+DRYRUN_JOBS = 4
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun")
+
+
+def dry_run_start():
+    """Starts phase 13(a), the dry-run CLI over DRYRUN_CELLS, in a session
+    of its own; ``dry_run_finish`` reads it."""
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cuda",
+           "--jobs", str(DRYRUN_JOBS), "--out", DRYRUN_OUT]
+    for arch, shape in DRYRUN_CELLS:
+        cmd += ["--cell", f"{arch}:{shape}"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True, cwd=ROOT)
+
+
+def dry_run_finish(port, proc):
+    """Phase 13(a): waits for the dry run, holds its count of cells, its
+    skip and its rows (nothing unmapped, positive compute and memory terms,
+    a memory estimate), prints a line per row and ``roofline_table``'s
+    table and candidates over them. Returns the rows."""
+    try:
+        out = proc.communicate(timeout=600)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    lines = out.splitlines()
+    for line in lines:
+        if line.startswith(("OK ", "SKIP ", "FAIL ")) or "cells OK" in line:
+            log(f"  dryrun: {line}")
+    n = len(DRYRUN_CELLS)
+    require(proc.returncode == 0 and f"{n}/{n} cells OK" in out,
+            f"dry run: exit {proc.returncode}\n{out[-4000:]}")
+    require(any(line.startswith("SKIP  yi-9b x long_500k") for line in lines),
+            "dry run: yi-9b x long_500k must be a documented skip")
+    rows = port["roofline_table"].load_rows(DRYRUN_OUT)
+    ran = sorted((r["arch"], r["shape"]) for r in rows)
+    require(ran == sorted(c for c in DRYRUN_CELLS if c[0] != "yi-9b"),
+            f"dry run: rows for {ran}")
+    keys = ("compute_s", "memory_s", "collective_s", "dominant", "bound_s", "useful_ratio",
+            "arg_bytes", "out_bytes", "alias_bytes", "temp_bytes", "memory_per_device",
+            "mem_per_device_adjusted", "collectives", "lower_s", "compile_s", "chips")
+    for r in sorted(rows, key=lambda r: (r["arch"], r["shape"])):
+        require(r["unmapped"] == [], f"dry run {r['arch']} x {r['shape']}: unmapped "
+                                     f"{r['unmapped']}")
+        require(r["chips"] == 256 and r["compute_s"] > 0 and r["memory_s"] > 0
+                and r["temp_bytes"] > 0 and r["arg_bytes"] > 0,
+                f"dry run {r['arch']} x {r['shape']}: {r}")
+        log(json.dumps({"dryrun": {"arch": r["arch"], "shape": r["shape"],
+                                   "mesh": r["mesh"], **{k: r[k] for k in keys}}}))
+    table = port["roofline_table"]
+    for line in table.fmt_table(rows, "16x16").splitlines():
+        log(f"  {line}")
+    for k, v in table.candidates(rows).items():
+        log(f"  - {k}: {v}")
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    return rows
+
+
+def traced_step(port):
+    """Phase 13(b): on a one-rank NCCL group and a 1 x 1 mesh, the dry run's
+    trace of phase 11's tinyllama-1.1b step (bf16, BATCH x PROMPT_LEN) under
+    its own run config, its row and roofline; then the same step run on the
+    card with a real state placed by ``state_shardings``: the traced
+    arguments' bytes equal to the live state's and batch's, the median of
+    three timed steps at least the traced bound, and the allocator's peak
+    beside the traced arg + temp + out bytes. Returns the summary."""
+    dist = torch.distributed
+    cfg_mod, dryrun, train_state, step_mod, data, mesh_mod, sharding = (
+        port["configs"], port["dryrun"], port["train_state"], port["train_step"],
+        port["data"], port["mesh"], port["sharding"])
+    cfg = cfg_mod.get_config(TRAIN_ARCH)
+    shape = cfg_mod.base.ShapeConfig("phase11", PROMPT_LEN, BATCH, "train")
+    run = dryrun.default_run_config(cfg, shape)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        ctx = mesh_mod.make_elastic_mesh_context(1, device="cuda")
+        t0 = time.perf_counter()
+        gm, inputs = dryrun.trace_cell(cfg, shape, run, ctx, "cuda")
+        trace_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row, report, _ = dryrun.cell_row(gm, inputs, f"{TRAIN_ARCH}/phase11",
+                                         port["specs"].model_flops_estimate(cfg, shape))
+        lower_s = time.perf_counter() - t0
+        del gm, inputs
+        require(row["unmapped"] == [], f"traced step: unmapped {row['unmapped']}")
+        log(report.render())
+
+        state = train_state.init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+        state = train_state.distribute_state(state, train_state.state_shardings(
+            state, ctx, run))
+        batches = [{k: v.to(torch.int32) for k, v in train_batch(data, cfg, i).items()}
+                   for i in range(4)]
+        local = [*state.params.parameters(), *state.opt.mu.values(), *state.opt.nu.values(),
+                 state.opt.count, state.step, *batches[0].values()]
+        live = sum((t.to_local() if sharding.is_distributed(t) else t).numel()
+                   * t.element_size() for t in local)
+        require(live == row["arg_bytes"],
+                f"traced step: arguments {row['arg_bytes']} B, live state and batch {live} B")
+        step_fn = step_mod.make_train_step(cfg, run)
+        sharding.set_mesh_context(ctx)
+        try:
+            holder = {"state": state}
+            holder["state"], metrics = step_fn(holder["state"], batches[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            step_ms = []
+            for b in batches[1:]:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                holder["state"], metrics = step_fn(holder["state"], b)
+                end.record()
+                torch.cuda.synchronize()
+                step_ms.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            sharding.set_mesh_context(None)
+        loss = float(metrics["loss"].full_tensor())
+        require(math.isfinite(loss), f"traced step: loss {loss}")
+        median = statistics.median(step_ms)
+        bound_ms = row["bound_s"] * 1e3
+        require(median >= bound_ms,
+                f"traced step: measured {median} ms beats the traced bound {bound_ms} ms")
+        summary = {"model": TRAIN_ARCH, "batch": [BATCH, PROMPT_LEN], "run": {
+                       "attention_impl": run.attention_impl, "remat": run.remat,
+                       "zero": run.zero, "fsdp": run.fsdp, "seq_shard": run.seq_shard},
+                   "trace_s": trace_s, "lower_s": lower_s, "loss": loss,
+                   "step_ms": step_ms, "bound_ms": bound_ms,
+                   "measured_over_bound": median / bound_ms,
+                   "dominant": row["dominant"], "compute_s": row["compute_s"],
+                   "memory_s": row["memory_s"], "collective_s": row["collective_s"],
+                   "arg_bytes": row["arg_bytes"], "live_arg_bytes": live,
+                   "out_bytes": row["out_bytes"], "alias_bytes": row["alias_bytes"],
+                   "temp_bytes": row["temp_bytes"], "traced_bytes": row["memory_per_device"],
+                   "allocator_peak_bytes": peak, "allocator_base_bytes": base,
+                   "peak_over_traced": peak / row["memory_per_device"]}
+        log(json.dumps({"traced_step": summary}))
+        del state, holder, batches, metrics
+        torch.cuda.empty_cache()
+        return summary
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2665,6 +2834,8 @@ def port_modules():
         "mesh": importlib.import_module("repro_torch.launch.mesh"),
         "elastic": importlib.import_module("repro_torch.launch.elastic"),
         "specs": importlib.import_module("repro_torch.launch.specs"),
+        "dryrun": importlib.import_module("repro_torch.launch.dryrun"),
+        "roofline_table": importlib.import_module("repro_torch.launch.roofline_table"),
     }
 
 
@@ -2727,6 +2898,16 @@ def main() -> int:
     t0 = time.perf_counter()
     gloo_meshes(port)
     seconds["sharding (c) gloo meshes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry_run = dry_run_start()
+    try:
+        traced_step(port)
+    except BaseException:
+        os.killpg(dry_run.pid, 9)
+        raise
+    seconds["dry run (b) traced step"] = time.perf_counter() - t0
+    dry_run_finish(port, dry_run)
+    seconds["dry run (a) cells"] = time.perf_counter() - t0
     log(json.dumps({"phase_seconds": seconds}))
 
     sources = {

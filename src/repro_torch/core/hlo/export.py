@@ -59,7 +59,7 @@ from __future__ import annotations
 
 import operator
 import re
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import fx
@@ -93,7 +93,7 @@ _OPCODES = {
     "all": "reduce", "argmax": "reduce", "argmin": "reduce",
     "var": "reduce", "var_mean": "reduce",
     "embedding": "gather", "index": "gather", "index_select": "gather",
-    "gather": "gather", "clone": "copy", "copy": "copy",
+    "gather": "gather", "clone": "copy", "copy": "copy", "lift_fresh_copy": "copy",
     "cat": "concatenate", "arange": "iota", "scalar_tensor": "constant",
     "full": "broadcast", "full_like": "broadcast", "zeros": "broadcast",
     "zeros_like": "broadcast", "ones": "broadcast", "ones_like": "broadcast",
@@ -102,6 +102,7 @@ _OPCODES = {
     "relu": "maximum", "hardtanh": "clamp", "flip": "reverse",
     "constant_pad_nd": "pad", "cumsum": "reduce-window", "sort": "sort",
     "argsort": "sort", "topk": "sort", "slice_scatter": "dynamic-update-slice",
+    "select_scatter": "dynamic-update-slice",
     "index_put": "scatter", "scatter_add": "scatter", "scatter": "scatter",
     "scatter_reduce": "scatter", "index_add": "scatter",
 }
@@ -466,13 +467,25 @@ def core_aten(ep: "torch.export.ExportedProgram") -> "torch.export.ExportedProgr
 def lower_exported(ep: "torch.export.ExportedProgram",
                    name: str = "exported") -> HLOModule:
     """The HLO IR of ``ep``, decomposed to core ATen first."""
-    ep = core_aten(ep)
+    return lower_graph(core_aten(ep).graph_module, name)
+
+
+def graph_text(gm: fx.GraphModule, name: str = "traced") -> Tuple[str, Tuple[str, ...]]:
+    """(HLO text, unmapped ATen ops) of a core-ATen ``GraphModule`` whose
+    nodes carry their values in ``meta["val"]`` (an exported program's, or
+    a ``make_fx`` trace's), its placeholders the entry's parameters."""
     lowering = _Lowering()
-    lowering.computation(ep.graph_module, lowering._comp_name("main"), entry=True)
+    lowering.computation(gm, lowering._comp_name("main"), entry=True)
     header = f"HloModule {name}, num_partitions={_num_partitions()}"
-    text = header + "\n\n" + "\n".join(lowering.computations)
+    return header + "\n\n" + "\n".join(lowering.computations), tuple(lowering.unmapped)
+
+
+def lower_graph(gm: fx.GraphModule, name: str = "traced") -> HLOModule:
+    """The HLO IR of ``gm`` (:func:`graph_text`, parsed), its unmapped ATen
+    ops in ``module.unmapped``."""
+    text, unmapped = graph_text(gm, name)
     module = parse_hlo(text)
-    module.unmapped = tuple(lowering.unmapped)
+    module.unmapped = unmapped
     return module
 
 

@@ -10,11 +10,13 @@ bound.
     memory term     = bytes(per card) / HBM_bw
     collective term = collective_bytes(per card) / link_bw
 
-:func:`roofline_from_exported` takes a ``torch.export`` program: its raw
-FLOP count is PyTorch's own (``torch.utils.flop_counter``, the counterpart
-of XLA's ``cost_analysis()``), its bytes the static estimate over the
-lowered graph; collective bytes are summed over the operand sizes of every
-collective op.  :func:`roofline_report` reads HLO text alone.
+:func:`roofline_from_exported` takes a ``torch.export`` program and
+:func:`roofline_from_traced` one rank's ``make_fx`` trace on a process
+group: the raw FLOP count is PyTorch's own (``torch.utils.flop_counter``,
+the counterpart of XLA's ``cost_analysis()``), the bytes the static
+estimate over the lowered graph; collective bytes are summed over the
+operand sizes of every collective op.  :func:`roofline_report` reads HLO
+text alone.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.hlo.costs import HLOCostModel
-from repro_torch.core.hlo.export import core_aten, lower_exported
+from repro_torch.core.hlo.export import core_aten, lower_exported, lower_graph
 from repro_torch.core.hlo.machine import GPUChip, H100_SXM
 from repro_torch.core.hlo.parser import HLOModule, parse_hlo
 
@@ -175,42 +177,32 @@ class _BodiesOnce(torch.fx.Interpreter):
         return super().call_function(target, args, kwargs)
 
 
-def _counted_flops(ep) -> float:
-    """PyTorch's own FLOP count of one run of ``ep`` (decomposed to core
-    ATen), each while body counted once: ``FlopCounterMode`` over the graph
-    under the export's ``FakeTensorMode``, so nothing runs on a device."""
+def _counted_flops(gm: torch.fx.GraphModule, inputs) -> float:
+    """PyTorch's own FLOP count of one run of the core-ATen graph ``gm`` on
+    ``inputs`` (fake tensors), each while body counted once:
+    ``FlopCounterMode`` over the graph under the inputs' ``FakeTensorMode``,
+    so nothing runs on a device."""
     from torch._guards import detect_fake_mode
     from torch.utils.flop_counter import FlopCounterMode
 
-    gm = core_aten(ep).graph_module
-    vals = [n.meta["val"] for n in gm.graph.nodes if n.op == "placeholder"]
-    with torch.no_grad(), detect_fake_mode(vals), \
+    with torch.no_grad(), detect_fake_mode(inputs), \
             FlopCounterMode(display=False) as counter:
-        _BodiesOnce(gm).run(*vals)
+        _BodiesOnce(gm).run(*inputs)
     return float(counter.get_total_flops())
 
 
-def roofline_from_exported(
-    ep,
-    name: str = "step",
-    chip: GPUChip = H100_SXM,
-    model_flops: Optional[float] = None,
-    memory_per_device: Optional[int] = None,
-) -> RooflineReport:
-    """Build the report from a ``torch.export.ExportedProgram``.
+def _report(module: HLOModule, raw: float, name: str, chip: GPUChip,
+            model_flops: Optional[float],
+            memory_per_device: Optional[int]) -> RooflineReport:
+    """The report of a lowered graph whose raw FLOP count (each while body
+    once) is ``raw``.
 
     PyTorch's flop counter counts each ``while`` body once (as XLA's
     ``cost_analysis()`` does), so a loop would be undercounted by its trip
     count.  We correct by the ratio of the static trip-aware estimate to
     the trips=1 estimate (both from the lowered graph itself), and scale
     collectives inside loop bodies by their execution counts.  PyTorch
-    gives no bytes count (``ca_raw_bytes`` stays 0), and the memory per
-    device only where the caller passes it.
-    """
-    ep = core_aten(ep)
-    raw = _counted_flops(ep)
-    module = lower_exported(ep)
-
+    gives no bytes count (``ca_raw_bytes`` stays 0)."""
     cost_trips = HLOCostModel(module, chip, count_while_trips=True)
     cost_once = HLOCostModel(module, chip, count_while_trips=False)
     est_flops_trips = cost_trips.module_flops()
@@ -235,6 +227,49 @@ def roofline_from_exported(
     )
     report.ca_raw_flops = raw
     return report
+
+
+def roofline_from_exported(
+    ep,
+    name: str = "step",
+    chip: GPUChip = H100_SXM,
+    model_flops: Optional[float] = None,
+    memory_per_device: Optional[int] = None,
+) -> RooflineReport:
+    """Build the report from a ``torch.export.ExportedProgram`` (decomposed
+    to core ATen first); the memory per device only where the caller
+    passes it."""
+    ep = core_aten(ep)
+    gm = ep.graph_module
+    inputs = [n.meta["val"] for n in gm.graph.nodes if n.op == "placeholder"]
+    return _report(lower_exported(ep), _counted_flops(gm, inputs), name, chip,
+                   model_flops, memory_per_device)
+
+
+def roofline_from_traced(
+    gm: torch.fx.GraphModule,
+    inputs,
+    name: str = "step",
+    chip: GPUChip = H100_SXM,
+    model_flops: Optional[float] = None,
+    memory_per_device: Optional[int] = None,
+    module: Optional[HLOModule] = None,
+) -> RooflineReport:
+    """Build the report from one rank's ``make_fx`` trace (the counterpart
+    of the reference's ``roofline_from_compiled``): ``gm`` traced with
+    ``torch._decomp.core_aten_decompositions()``, so it is core ATen as
+    ``export.core_aten`` gives, and ``inputs`` its fake inputs.  FLOPs are
+    PyTorch's count over the graph (it has no ``while``, so the trip
+    correction is 1); bytes and collectives come from the graph's lowering,
+    whose ``num_partitions`` is the default group's world size and whose
+    collectives carry their groups' ranks, so the NVLink term counts them.
+    ``memory_per_device`` is the caller's (the dry run's arg + out + temp
+    bytes), and so may be ``module``, the graph's lowering, where the
+    caller has it."""
+    if module is None:
+        module = lower_graph(gm, name.replace("/", "_"))
+    return _report(module, _counted_flops(gm, inputs), name, chip, model_flops,
+                   memory_per_device)
 
 
 def roofline_report(

@@ -35,6 +35,7 @@ which has no such dimension, takes ``zero_extend`` of its own shape
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 from dataclasses import dataclass
@@ -246,6 +247,139 @@ def batch_shardings(specs: Mapping[str, Any], ctx: MeshContext) -> Dict[str, Any
         return NamedSharding(ctx.mesh, _sanitize(ctx, leaf.shape, spec))
 
     return {k: shard(v) if k != "cache" else v for k, v in specs.items()}
+
+
+def cache_shardings(cache_specs: Mapping[str, Any], ctx: MeshContext) -> Dict[str, Any]:
+    """KV caches: batch over data, sequence over model. SSM states: batch
+    over data, heads over model; conv states: batch over data, channels over
+    model. ``pos`` replicated."""
+    data = data_entry(ctx)
+    out = {}
+    for name, leaf in cache_specs.items():
+        nd = len(getattr(leaf, "shape", ()))
+        if name in ("k", "v", "dk", "dv", "cross_k", "cross_v") and nd == 5:
+            spec = P(None, data, "model", None, None)
+        elif name == "ssm":
+            spec = (P(None, data, "model", None, None) if nd == 5
+                    else P(None, None, data, "model", None, None))
+        elif name == "conv":
+            spec = (P(None, data, None, "model") if nd == 4
+                    else P(None, None, data, None, "model"))
+        else:  # pos and misc scalars
+            spec = P()
+        shape = tuple(getattr(leaf, "shape", ()))
+        out[name] = NamedSharding(ctx.mesh, _sanitize(ctx, shape, spec))
+    return out
+
+
+def on_mesh(anchor, inputs: Mapping[str, Any]):
+    """(inputs, context) for a step of a model one of whose parameters is
+    ``anchor``: with a mesh context set and ``anchor`` a DTensor, each plain
+    input distributed by ``batch_shardings`` (``None`` kept) and
+    ``implicit_replication`` (tensors the model makes, such as positions
+    and masks, read as replicated); else the inputs as given, no context."""
+    ctx = current_mesh()
+    if ctx is None or not is_distributed(anchor):
+        return dict(inputs), contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    shardings = batch_shardings({k: v for k, v in inputs.items() if v is not None}, ctx)
+    return ({k: v if v is None or is_distributed(v) else distribute(v, shardings[k])
+             for k, v in inputs.items()}, implicit_replication())
+
+
+def gathered(w):
+    """A parameter as its matmul reads it: a DTensor ``w`` with the mesh
+    context's data axes replicated and its model-axis sharding kept (the
+    all-gather FSDP makes before a product; its backward reduce-scatters
+    the gradient). Left to DTensor, a product with an FSDP-sharded weight
+    may shard its rows over the model axis as well, which gives the
+    gradient rows a strided sharding a ``mm`` cannot propagate. Any other
+    tensor, or any tensor without a mesh context, comes back unchanged."""
+    ctx = current_mesh()
+    if ctx is None or not is_distributed(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = list(mesh_shape(w.device_mesh))
+    data = {names.index(a) for a in ctx.data_axes if a in names}
+    target = tuple(Replicate() if i in data else p for i, p in enumerate(w.placements))
+    return w if target == tuple(w.placements) else w.redistribute(w.device_mesh, target)
+
+
+def einsum(equation: str, *operands):
+    """``torch.einsum(equation, *operands)``. DTensor operands sharded on
+    batch dims only (each mesh dim shards one label that every operand and
+    the output have, in every operand) run on their local shards, the
+    result wrapped under that label's placements: DTensor's own rule
+    flattens two sharded batch dims into one (the batch of a ``bmm``) that
+    it then cannot propagate. Any other product takes DTensor's rule (an
+    operand replicated where another is sharded gets a gradient summed
+    over that mesh dim, which the local product would not give); plain
+    tensors ``torch.einsum``."""
+    if not operands or not all(is_distributed(o) for o in operands):
+        return torch.einsum(equation, *operands)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    ins, out = equation.replace(" ", "").split("->")
+    ins = ins.split(",")
+    mesh = operands[0].device_mesh
+    labels: Dict[int, str] = {}
+    for labs, o in zip(ins, operands):
+        if o.device_mesh != mesh or "." in labs:
+            return torch.einsum(equation, *operands)
+        for i, p in enumerate(o.placements):
+            if p.is_partial():
+                return torch.einsum(equation, *operands)
+            if p.is_shard() and labels.setdefault(i, labs[p.dim % o.ndim]) != labs[p.dim % o.ndim]:
+                return torch.einsum(equation, *operands)
+    for i, lab in labels.items():
+        if lab not in out or any(lab not in labs or o.placements[i] != Shard(labs.index(lab))
+                                 for labs, o in zip(ins, operands)):
+            return torch.einsum(equation, *operands)
+    local = torch.einsum(equation, *(o.to_local() for o in operands))
+    return DTensor.from_local(local, mesh, [Shard(out.index(labels[i])) if i in labels
+                                            else Replicate() for i in range(mesh.ndim)],
+                              run_check=False)
+
+
+def write_positions(dst, start: int, src) -> None:
+    """``dst[:, start:start + n] = src`` in place, for dst (B, T, ...) and
+    src (B, n, ...). A DTensor ``dst`` whose T is sharded (a cache, over the
+    model axis) cannot be sliced there, so each rank writes its own shard:
+    ``src`` first takes dst's placements with T whole; where n fits in a
+    shard, every rank writes n slots at ``start`` less its shard's offset,
+    clamped into the shard, the new positions where they are its own and
+    its old ones elsewhere (a masked write, as XLA partitions a dynamic
+    update of a sharded dim); a longer ``src`` (a prefill) is written over
+    the part of the shard it covers."""
+    n = src.shape[1]
+    t_dims = ([i for i, p in enumerate(dst.placements)
+               if p.is_shard() and p.dim % dst.ndim == 1] if is_distributed(dst) else [])
+    if not t_dims:
+        dst[:, start:start + n] = src
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = dst.device_mesh
+    whole = tuple(Replicate() if i in t_dims else p for i, p in enumerate(dst.placements))
+    if not is_distributed(src):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    src = src.redistribute(mesh, whole).to_local()
+    local = dst.to_local()
+    index, coordinate = 0, mesh.get_coordinate()
+    for i in t_dims:  # major to minor, in mesh order
+        index = index * mesh.size(i) + coordinate[i]
+    tl = local.shape[1]
+    off = index * tl
+    if n <= tl:
+        lo = min(max(start - off, 0), tl - n)
+        mine = off <= start and start + n <= off + tl
+        local[:, lo:lo + n] = src if mine else local[:, lo:lo + n].clone()
+        return
+    a, b = max(start, off), min(start + n, off + tl)
+    if a < b:
+        local[:, a - off:b - off] = src[:, a - start:b - start]
 
 
 # ---------------------------------------------------------------------------

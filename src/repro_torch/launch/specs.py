@@ -10,9 +10,8 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.distributed import MeshContext
-from repro_torch.distributed.sharding import (  # noqa: F401 (batch_shardings re-exported)
-    P, NamedSharding, _sanitize, batch_shardings, data_entry)
+from repro_torch.distributed.sharding import (  # noqa: F401 (shardings re-exported)
+    batch_shardings, cache_shardings)
 from repro_torch.models.transformer import init_cache
 
 
@@ -55,29 +54,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
         if shape.kind == "train":
             specs["labels"] = sds((b, s), torch.int32)
     return specs
-
-
-def cache_shardings(cache_specs: Dict[str, Any], ctx: MeshContext) -> Dict[str, Any]:
-    """KV caches: batch over data, sequence over model. SSM states: batch
-    over data, heads over model; conv states: batch over data, channels over
-    model. ``pos`` replicated."""
-    data = data_entry(ctx)
-    out = {}
-    for name, leaf in cache_specs.items():
-        nd = len(getattr(leaf, "shape", ()))
-        if name in ("k", "v", "dk", "dv", "cross_k", "cross_v") and nd == 5:
-            spec = P(None, data, "model", None, None)
-        elif name == "ssm":
-            spec = (P(None, data, "model", None, None) if nd == 5
-                    else P(None, None, data, "model", None, None))
-        elif name == "conv":
-            spec = (P(None, data, None, "model") if nd == 4
-                    else P(None, None, data, None, "model"))
-        else:  # pos and misc scalars
-            spec = P()
-        shape = tuple(getattr(leaf, "shape", ()))
-        out[name] = NamedSharding(ctx.mesh, _sanitize(ctx, shape, spec))
-    return out
 
 
 def model_flops_estimate(cfg: ModelConfig, shape: ShapeConfig) -> float:

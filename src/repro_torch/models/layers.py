@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import constrain, current_mesh
+from repro_torch.distributed.sharding import einsum, gathered, write_positions
 from repro_torch.kernels import ops
 
 DATA = ("pod", "data")  # batch axes (sanitized away when the mesh lacks "pod")
@@ -148,7 +149,7 @@ def naive_attention(q, k, v, causal: bool = True, window: int = 0,
     t, n_kv = k.shape[1], k.shape[2]
     qg = _group_query(q, n_kv)
     scale = 1.0 / math.sqrt(d)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    scores = einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
     if softcap > 0:
         scores = softcap * torch.tanh(scores / softcap)
     qpos = torch.arange(s, device=q.device) + q_offset
@@ -160,7 +161,7 @@ def naive_attention(q, k, v, causal: bool = True, window: int = 0,
         mask &= kpos[None, :] > qpos[:, None] - window
     scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(), v.float())
+    out = einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(), v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
@@ -186,7 +187,7 @@ def chunked_attention(q, k, v, chunk: int = 512, causal: bool = True,
     for j in range(t // chunk):
         kj = k[:, j * chunk:(j + 1) * chunk]
         vj = v[:, j * chunk:(j + 1) * chunk]
-        scores = torch.einsum("bskgd,btkd->bkgst", qg, kj.float()) * scale
+        scores = einsum("bskgd,btkd->bkgst", qg, kj.float()) * scale
         if softcap > 0:
             scores = softcap * torch.tanh(scores / softcap)
         kpos = j * chunk + torch.arange(chunk, device=q.device)[None, :]
@@ -200,7 +201,7 @@ def chunked_attention(q, k, v, chunk: int = 512, causal: bool = True,
         alpha = torch.exp(m - m_new)
         p = torch.exp(scores - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(vj.dtype).float(), vj.float())
+        pv = einsum("bkgst,btkd->bkgsd", p.to(vj.dtype).float(), vj.float())
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
@@ -213,13 +214,16 @@ def decode_attention(q, k_cache, v_cache, lengths, window: int = 0,
     """Single-position attention against a (B,T,K,D) cache.
 
     q: (B,1,H,D); lengths: (B,) number of valid cache positions (inclusive of
-    the current token).
+    the current token). On a mesh the query's heads are gathered first, so
+    that the scores keep the cache's sharding of T (a DTensor cannot
+    flatten heads and batch both sharded into one product batch).
     """
     b, _, h, d = q.shape
     t, n_kv = k_cache.shape[1], k_cache.shape[2]
+    q = constrain(q, DATA, None, None, None)
     qg = _group_query(q, n_kv)[:, 0].to(k_cache.dtype)  # (B,K,G,D)
     scale = 1.0 / math.sqrt(d)
-    scores = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float()) * scale
+    scores = einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float()) * scale
     if softcap > 0:
         scores = softcap * torch.tanh(scores / softcap)
     kpos = torch.arange(t, device=q.device)[None, :]  # (1,T)
@@ -228,8 +232,7 @@ def decode_attention(q, k_cache, v_cache, lengths, window: int = 0,
         valid &= kpos >= torch.clamp(lengths[:, None] - window, min=0)
     scores = scores.masked_fill(~valid[:, None, None], -1e30)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", probs.to(v_cache.dtype).float(),
-                       v_cache.float())
+    out = einsum("bkgt,btkd->bkgd", probs.to(v_cache.dtype).float(), v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
@@ -274,9 +277,9 @@ def attention_block(
     kv_src = x if kv_x is None else gather_sequence(kv_x)
     t = kv_src.shape[1]
 
-    q = split_heads(x @ params.wq, h, d, k_heads)
-    kk = split_heads(kv_src @ params.wk, k_heads, d, k_heads)
-    vv = split_heads(kv_src @ params.wv, k_heads, d, k_heads)
+    q = split_heads(x @ gathered(params.wq), h, d, k_heads)
+    kk = split_heads(kv_src @ gathered(params.wk), k_heads, d, k_heads)
+    vv = split_heads(kv_src @ gathered(params.wv), k_heads, d, k_heads)
     if cfg.qk_norm:
         q = rms_norm(q, params.q_norm, cfg.norm_eps, kernel=kernel)
         kk = rms_norm(kk, params.k_norm, cfg.norm_eps, kernel=kernel)
@@ -287,8 +290,8 @@ def attention_block(
     if kv_cache is not None:
         k_cache, v_cache = kv_cache
         slot = max(0, min(cache_pos, k_cache.shape[1] - s))
-        k_cache[:, slot:slot + s] = kk
-        v_cache[:, slot:slot + s] = vv
+        write_positions(k_cache, slot, kk)
+        write_positions(v_cache, slot, vv)
         fill = cache_fill if cache_fill is not None else cache_pos + s
         lengths = torch.full((b,), fill, dtype=torch.int32, device=x.device)
         win = 0 if cache_fill is not None else cfg.window
@@ -315,7 +318,7 @@ def attention_block(
     # The merged heads pinned to the row-parallel layout wo's product
     # takes, so that its gradient reaches the reshape in out's layout.
     out = constrain(out.reshape(b, s, h * d), DATA, None, MODEL)
-    y = out @ params.wo
+    y = out @ gathered(params.wo)
     return constrain(y, DATA, None, None), new_kv
 
 
@@ -328,9 +331,9 @@ def mlp_block(params, x: torch.Tensor, act: str) -> torch.Tensor:
     """``params`` holds wi (d, 2*ff for swiglu, split [gate, up]) and wo."""
     x = gather_sequence(x)
     if act == "swiglu":
-        gate, up = constrain(x @ params.wi, DATA, None, MODEL).chunk(2, dim=-1)
+        gate, up = constrain(x @ gathered(params.wi), DATA, None, MODEL).chunk(2, dim=-1)
         hidden = F.silu(gate) * up
     else:
-        hidden = F.gelu(x @ params.wi, approximate="tanh")  # jax.nn.gelu
+        hidden = F.gelu(x @ gathered(params.wi), approximate="tanh")  # jax.nn.gelu
         hidden = constrain(hidden, DATA, None, MODEL)
-    return constrain(hidden @ params.wo, DATA, None, None)
+    return constrain(hidden @ gathered(params.wo), DATA, None, None)

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import constrain, current_mesh
-from repro_torch.distributed.sharding import is_distributed, on_local_shard
+from repro_torch.distributed.sharding import einsum, gathered, is_distributed, on_local_shard
 from repro_torch.kernels import ops
 from repro_torch.models.layers import DATA, MODEL, ParamGroup, gather_sequence, rms_norm
 
@@ -76,7 +76,7 @@ def _intra_chunk_plain(xdt, cum, bc, cc, chunk_shard: bool = False):
     xdt (B,nc,Q,H,P) f32, cum (B,nc,Q,H) f32, bc/cc (B,nc,Q,N). Returns
     y_intra (B,nc,Q,H,P) and the chunk states (B,nc,H,N,P), f32."""
     q, nh = xdt.shape[2], xdt.shape[3]
-    scores = torch.einsum("bcin,bcjn->bcij", cc.float(), bc.float())  # (B,nc,Q,Q)
+    scores = einsum("bcin,bcjn->bcij", cc.float(), bc.float())  # (B,nc,Q,Q)
     if chunk_shard:
         scores = constrain(scores, DATA, MODEL, None, None)
     valid = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xdt.device))
@@ -90,9 +90,9 @@ def _intra_chunk_plain(xdt, cum, bc, cc, chunk_shard: bool = False):
         mask = valid[None, None, :, :, None]
         decay = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
         m = scores[..., None] * decay
-        ys.append(torch.einsum("bcijh,bcjhp->bcihp", m, xdt_h))
+        ys.append(einsum("bcijh,bcjhp->bcihp", m, xdt_h))
         d2e = torch.exp(cum_h[:, :, -1:, :] - cum_h)  # (B,nc,Q,hb)
-        states.append(torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc.float(), d2e, xdt_h))
+        states.append(einsum("bcjn,bcjh,bcjhp->bchnp", bc.float(), d2e, xdt_h))
     return torch.cat(ys, dim=3), torch.cat(states, dim=2)
 
 
@@ -197,7 +197,7 @@ def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = Fals
     b, s, _ = x.shape
     di, n, nh, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
 
-    proj = gather_sequence(x) @ params.in_proj
+    proj = gather_sequence(x) @ gathered(params.in_proj)
     if chunk_shard and not single_step:
         proj = constrain(proj, DATA, MODEL, None)
     else:
@@ -207,7 +207,9 @@ def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = Fals
     xs = xbc[..., :di].reshape(b, s, nh, p)
     Bm = xbc[..., di:di + n]
     Cm = xbc[..., di + n:]
-    dt = F.softplus(dt_raw.float() + params.dt_bias.float())
+    # On a mesh on the local shard: DTensor has no rule of its own for
+    # softplus's backward.
+    dt = on_local_shard(F.softplus, dt_raw.float() + params.dt_bias.float(), (), "softplus")
     A = -torch.exp(params.A_log.float())
 
     if single_step:
@@ -215,9 +217,9 @@ def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = Fals
         h_prev = (torch.zeros((b, nh, n, p), dtype=torch.float32, device=x.device)
                   if ssm_state is None else ssm_state.float())
         xdt = xs[:, 0].float() * dt[:, 0][..., None]  # (B,H,P)
-        h_new = dA[..., None, None] * h_prev + torch.einsum(
+        h_new = dA[..., None, None] * h_prev + einsum(
             "bn,bhp->bhnp", Bm[:, 0].float(), xdt)
-        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h_new)
+        y = einsum("bn,bhnp->bhp", Cm[:, 0].float(), h_new)
         y = y[:, None].to(x.dtype)  # (B,1,H,P)
         ssm_state = h_new.to(x.dtype)
     else:
@@ -229,5 +231,5 @@ def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = Fals
     y = rms_norm(y * F.silu(z), params.ssm_norm, cfg.norm_eps, kernel=kernel)
     # The sequence whole before the rows flatten (it is sharded under
     # ``chunk_shard``).
-    y = gather_sequence(y) @ params.out_proj
+    y = gather_sequence(y) @ gathered(params.out_proj)
     return constrain(y, DATA, None, None), ssm_state, conv_state

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import constrain
+from repro_torch.distributed.sharding import einsum, gathered
 from repro_torch.models.layers import DATA, MODEL, ParamGroup, gather_sequence
 
 
@@ -87,8 +88,8 @@ def route_topk(logits: torch.Tensor, top_k: int, capacity: int):
     # jax.nn.one_hot gives an out-of-range index), and ``keep`` drops it.
     slots = torch.arange(capacity, device=logits.device, dtype=pos.dtype)
     pos_oh = (pos[..., None] == slots).to(torch.float32) * keep[..., None]  # (G,S,k,C)
-    dispatch = torch.einsum("gske,gskc->gsec", onehot, pos_oh)
-    combine = torch.einsum("gsk,gske,gskc->gsec", topk_probs, onehot, pos_oh)
+    dispatch = einsum("gske,gskc->gsec", onehot, pos_oh)
+    combine = einsum("gsk,gske,gskc->gsec", topk_probs, onehot, pos_oh)
     return dispatch, combine, aux
 
 
@@ -105,8 +106,8 @@ def route_topk_indices(logits: torch.Tensor, top_k: int, capacity: int):
 
 def _expert_ffn(params: MoE, expert_in: torch.Tensor) -> torch.Tensor:
     """(E,G,C,d) -> (E,G,C,d) through each expert's SwiGLU."""
-    gate, up = torch.einsum("egcd,edf->egcf", expert_in, params.moe_wi).chunk(2, dim=-1)
-    return torch.einsum("egcf,efd->egcd", F.silu(gate) * up, params.moe_wo)
+    gate, up = einsum("egcd,edf->egcf", expert_in, gathered(params.moe_wi)).chunk(2, dim=-1)
+    return einsum("egcf,efd->egcd", F.silu(gate) * up, gathered(params.moe_wo))
 
 
 def _moe_gather_dispatch(params: MoE, xg: torch.Tensor, cfg, capacity: int):
@@ -116,7 +117,7 @@ def _moe_gather_dispatch(params: MoE, xg: torch.Tensor, cfg, capacity: int):
     ``mode="drop"`` writes there, and no kept slot is written twice)."""
     g, s, d = xg.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
-    logits = torch.einsum("gsd,de->gse", xg, params.router)
+    logits = einsum("gsd,de->gse", xg, gathered(params.router))
     topk_idx, gates, pos, keep, aux = route_topk_indices(logits, k, capacity)
 
     gi = torch.arange(g, device=xg.device)[:, None, None].expand(g, s, k)
@@ -138,7 +139,7 @@ def _moe_gather_dispatch(params: MoE, xg: torch.Tensor, cfg, capacity: int):
     slot_of_token = topk_idx * capacity + torch.clamp(pos, max=capacity - 1)
     picked = flat[gi, slot_of_token]  # (G,S,k,d)
     w = (gates * keep).to(xg.dtype)  # dropped slots contribute zero
-    return torch.einsum("gsk,gskd->gsd", w, picked), aux
+    return einsum("gsk,gskd->gsd", w, picked), aux
 
 
 def moe_block(params: MoE, x: torch.Tensor, cfg,
@@ -156,20 +157,20 @@ def moe_block(params: MoE, x: torch.Tensor, cfg,
     if dispatch_mode == "gather":
         yg, aux = _moe_gather_dispatch(params, xg, cfg, capacity)
     else:  # the reference runs the einsum path for any mode but "gather"
-        logits = torch.einsum("gsd,de->gse", xg, params.router)
+        logits = einsum("gsd,de->gse", xg, gathered(params.router))
         dispatch, combine, aux = route_topk(logits, cfg.moe_top_k, capacity)
         dispatch = constrain(dispatch.to(x.dtype), DATA, None, MODEL, None)
         combine = constrain(combine.to(x.dtype), DATA, None, MODEL, None)
-        expert_in = constrain(torch.einsum("gsec,gsd->egcd", dispatch, xg),
+        expert_in = constrain(einsum("gsec,gsd->egcd", dispatch, xg),
                               MODEL, DATA, None, None)
         expert_out = constrain(_expert_ffn(params, expert_in), MODEL, DATA, None, None)
         # The combine contracts the expert dim, which a DTensor (torch 2.11)
         # cannot flatten sharded: on a mesh the experts whole first.
-        yg = torch.einsum("gsec,egcd->gsd", constrain(combine, DATA, None, None, None),
-                          constrain(expert_out, None, DATA, None, None))
+        yg = einsum("gsec,egcd->gsd", constrain(combine, DATA, None, None, None),
+                    constrain(expert_out, None, DATA, None, None))
     y = yg.reshape(b, s, d)
     if cfg.moe_shared > 0:
-        y = y + _swiglu(x, params.shared_wi, params.shared_wo)
+        y = y + _swiglu(x, gathered(params.shared_wi), gathered(params.shared_wo))
     # aux replicated: on a mesh it is a pending mean over the groups, which
     # DTensor (torch 2.11) cannot add to the loss's pending sum.
     return constrain(y, DATA, None, None), constrain(aux)

@@ -32,11 +32,13 @@ from torch import nn
 
 from repro_torch import Device, resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.distributed import constrain, current_mesh, set_mesh_context
+from repro_torch.distributed import MeshContext, constrain, current_mesh, set_mesh_context
+from repro_torch.distributed.sharding import (cache_shardings, empty_sharded, gathered,
+                                              is_distributed, on_mesh, write_positions)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (DATA, INIT_STD, MODEL, ParamGroup, attention_block,
                                        decode_attention, gather_sequence, mlp_block, rms_norm,
-                                       sinusoidal_positions, uses_kernels)
+                                       sinusoidal_positions, split_heads, uses_kernels)
 from repro_torch.models.mamba2 import MambaBlock, mamba_block
 from repro_torch.models.moe import MoE, moe_block
 
@@ -270,7 +272,7 @@ def hybrid_shared_block(params: Transformer, x, x0, inv_proj, cfg, run, position
                             cache_pos=cache_pos, cache_fill=cache_fill)
     m = mlp_block(params.shared_mlp,
                   rms_norm(xin, params.shared_norm2, cfg.norm_eps, kernel=kernel), cfg.act)
-    return _residual(x, (h + m) @ inv_proj, run), kv
+    return _residual(x, (h + m) @ gathered(inv_proj), run), kv
 
 
 def embed_tokens(params: Transformer, cfg, tokens: torch.Tensor) -> torch.Tensor:
@@ -284,9 +286,12 @@ def embed_tokens(params: Transformer, cfg, tokens: torch.Tensor) -> torch.Tensor
 
 def lm_logits(params: Transformer, cfg, x: torch.Tensor) -> torch.Tensor:
     """f32 logits over the padded vocabulary; padding columns are -1e30."""
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    head = params.embed.T if cfg.tie_embeddings else gathered(params.lm_head)
     logits = constrain(gather_sequence(x).float() @ head.float(), DATA, None, MODEL)
     if cfg.padded_vocab != cfg.vocab:  # mask vocabulary padding
+        if is_distributed(logits):  # a DTensor's sharded vocabulary cannot be sliced
+            cols = torch.arange(cfg.padded_vocab, device=logits.device)
+            return torch.where(cols < cfg.vocab, logits, -1e30)
         logits[..., cfg.vocab:] = -1e30
     return logits
 
@@ -505,9 +510,13 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device: Device = None, dtype: Optional[torch.dtype] = None) -> Cache:
+               device: Device = None, dtype: Optional[torch.dtype] = None,
+               mesh: Optional[MeshContext] = None) -> Cache:
     """Zeroed cache and ``pos`` (a Python int, the number of positions
-    filled; every row shares it).
+    filled; every row shares it). On ``mesh`` each tensor is a DTensor
+    placed by ``cache_shardings`` (sequence, heads or channels over the
+    model axis, batch over the data axes), of which this rank allocates its
+    own shard only.
 
     * dense, vlm: k/v (L, B, max_len, K, D).
     * audio: k/v (L, B, max_len, K, D) and cross_k/cross_v (L, B, F, K, D),
@@ -520,8 +529,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """
     _check_family(cfg)
     dev = resolve_device(device)
-    kw = dict(device=dev, dtype=_dtype(cfg, dtype))
-    cache: Cache = {"pos": 0}
+    shapes: Dict[str, Tuple[int, ...]] = {}
     if cfg.family in ("dense", "vlm", "moe", "audio"):
         dense = cfg.moe_first_dense if cfg.family == "moe" else 0
         cross = cfg.n_layers if cfg.family == "audio" else 0
@@ -529,18 +537,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                      ("dk", "dv", dense, max_len),
                                      ("cross_k", "cross_v", cross, cfg.frontend_len)):
             if layers:
-                shape = (layers, batch, length, cfg.n_kv_heads, cfg.d_head)
-                cache[k], cache[v] = torch.zeros(shape, **kw), torch.zeros(shape, **kw)
-        return cache
-    lead = (cfg.n_layers,) if cfg.family == "ssm" else (_n_groups(cfg), cfg.hybrid_attn_every)
-    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
-    cache["ssm"] = torch.zeros((*lead, batch, cfg.ssm_heads, cfg.ssm_state,
-                                cfg.ssm_head_dim), **kw)
-    cache["conv"] = torch.zeros((*lead, batch, cfg.ssm_conv - 1, conv_ch), **kw)
-    if cfg.family == "hybrid":
-        wlen = min(cfg.window or max_len, max_len)
-        shape = (_n_groups(cfg), batch, wlen, cfg.n_kv_heads, cfg.d_head)
-        cache["k"], cache["v"] = torch.zeros(shape, **kw), torch.zeros(shape, **kw)
+                shapes[k] = shapes[v] = (layers, batch, length, cfg.n_kv_heads, cfg.d_head)
+    else:
+        lead = ((cfg.n_layers,) if cfg.family == "ssm"
+                else (_n_groups(cfg), cfg.hybrid_attn_every))
+        shapes["ssm"] = (*lead, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
+        shapes["conv"] = (*lead, batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
+        if cfg.family == "hybrid":
+            wlen = min(cfg.window or max_len, max_len)
+            shapes["k"] = shapes["v"] = (_n_groups(cfg), batch, wlen, cfg.n_kv_heads,
+                                         cfg.d_head)
+    dt = _dtype(cfg, dtype)
+    cache: Cache = {"pos": 0}
+    if mesh is None:
+        cache.update({k: torch.zeros(shape, device=dev, dtype=dt) for k, shape in shapes.items()})
+    else:
+        placed = cache_shardings({k: torch.empty(shape, device="meta")
+                                  for k, shape in shapes.items()}, mesh)
+        cache.update({k: empty_sharded(shape, dt, placed[k]).zero_()
+                      for k, shape in shapes.items()})
     return cache
 
 
@@ -564,18 +579,32 @@ def prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
     decoder layer's cross K/V, the encoder output times cross_wk and
     cross_wv, as the reference computes them; the logits are those of the
     last position (B,1,V).
+
+    On a mesh (a mesh context set and the parameters DTensors) the tokens
+    and frontend are distributed by ``batch_shardings``, the step runs
+    under ``implicit_replication`` and the cache is ``init_cache``'s on the
+    mesh, each rank writing its own shard.
     """
+    inputs, context = on_mesh(params.embed, {"tokens": tokens, "frontend": frontend})
+    with context:
+        return _prefill(params, cfg, run, inputs["tokens"], max_len, inputs["frontend"])
+
+
+def _prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
+             tokens: torch.Tensor, max_len: Optional[int],
+             frontend: Optional[torch.Tensor]):
     hidden, extras = forward_hidden(params, cfg, run, tokens, frontend, collect_kv=True)
     logits_last = lm_logits(params, cfg, hidden[:, -1:])
     b, s = hidden.shape[:2]
+    mesh = current_mesh() if is_distributed(params.embed) else None
     cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device,
-                       dtype=params.embed.dtype)
+                       dtype=params.embed.dtype, mesh=mesh)
     w = min(cfg.window or s, s) if cfg.family == "hybrid" else s
     for names, kvs in ((("k", "v"), extras.get("kv", ())),
                        (("dk", "dv"), extras.get("dense_kv", ()))):
         for i, kv in enumerate(kvs):
             for name, t in zip(names, kv):
-                cache[name][i, :, :w] = t[:, s - w:]
+                write_positions(cache[name][i], 0, t[:, s - w:])
     if "ssm" in extras:
         ssm_l, conv_l = _layer_states(cache)
         for i, (ssm, conv) in enumerate(extras["ssm"]):
@@ -583,10 +612,10 @@ def prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
             conv_l[i] = conv
     if "enc_out" in extras:
         enc = extras["enc_out"]
-        shape = cache["cross_k"].shape[1:]
+        kv = (cfg.n_kv_heads, cfg.d_head, cfg.n_kv_heads)
         for i, lp in enumerate(params.layers):
-            cache["cross_k"][i] = (enc @ lp.cross.cross_wk).reshape(shape)
-            cache["cross_v"][i] = (enc @ lp.cross.cross_wv).reshape(shape)
+            cache["cross_k"][i] = split_heads(enc @ gathered(lp.cross.cross_wk), *kv)
+            cache["cross_v"][i] = split_heads(enc @ gathered(lp.cross.cross_wv), *kv)
     cache["pos"] = s
     return logits_last, cache
 
@@ -602,11 +631,11 @@ def _audio_decode_layer(lp: DenseBlock, x, cfg, run, positions, kv_cache, pos,
                            use_rope=False)
     x = x + h
     b = x.shape[0]
-    q = (rms_norm(x, lp.norm3, cfg.norm_eps, kernel=kernel) @ lp.cross.cross_wq).reshape(
-        b, 1, cfg.n_heads, cfg.d_head)
+    q = split_heads(rms_norm(x, lp.norm3, cfg.norm_eps, kernel=kernel)
+                    @ gathered(lp.cross.cross_wq), cfg.n_heads, cfg.d_head, cfg.n_kv_heads)
     attend = ops.flash_decode if kernel else decode_attention
     att = attend(q, *cross_kv, cross_lengths)
-    x = x + att.reshape(b, 1, -1) @ lp.cross.cross_wo
+    x = x + att.reshape(b, 1, -1) @ gathered(lp.cross.cross_wo)
     return x + mlp_block(lp.mlp, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg.act)
 
 
@@ -624,7 +653,23 @@ def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
     but for the vlm family, which mirrors the reference: position ``pos`` of
     a cache of T slots goes to slot ``min(pos, T - 1)`` and the step attends
     ``pos + 1`` positions, so all T.
+
+    ``pos`` is a Python int, so a step's graph holds for one position (the
+    reference's traced ``pos`` gives one graph for every position); at
+    ``pos = T - 1`` the step attends all T slots, the reference's work,
+    which is where the dry run traces it. On a mesh (a mesh context set and
+    the parameters DTensors) the tokens are distributed by
+    ``batch_shardings``, the step runs under ``implicit_replication`` and
+    the cache is a mesh cache (``init_cache``'s or ``prefill``'s on the
+    mesh), whose sequence-sharded K/V each rank writes on its own shard.
     """
+    inputs, context = on_mesh(params.embed, {"tokens": tokens})
+    with context:
+        return _decode_step(params, cfg, run, cache, inputs["tokens"])
+
+
+def _decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
+                 cache: Cache, tokens: torch.Tensor):
     pos = cache["pos"]
     b = tokens.shape[0]
     x = embed_tokens(params, cfg, tokens)

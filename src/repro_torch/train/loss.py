@@ -29,8 +29,46 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor,
     # masked partial sum whose mask has this shape.
     picked = torch.gather(logits, 1, labels[:, None].long())
     loss_sum = torch.sum(lse - picked)
-    acc = torch.sum(torch.argmax(logits, dim=-1) == labels)
+    acc = torch.sum(_argmax_rows(logits.detach()) == labels)
     return loss_sum, acc
+
+
+def _argmax_rows(logits: torch.Tensor) -> torch.Tensor:
+    """``argmax(logits, -1)`` of (N, V) logits, the first index among equal
+    maxima (as ``jnp.argmax``). A DTensor whose V is sharded is not
+    gathered: each rank takes its shard's max and first argmax (plus the
+    shard's offset), the max is all-reduced over the sharding mesh dims,
+    and then the smallest index holding it, two all-reduces of (N,), as
+    XLA partitions an argmax. DTensor's own argmax over a sharded dim reads
+    a value on the host, which a trace under fake tensors cannot."""
+    from repro_torch.distributed.sharding import is_distributed
+
+    if not is_distributed(logits):
+        return torch.argmax(logits, dim=-1)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    vocab_dims = [i for i, p in enumerate(pl) if p.is_shard() and p.dim % 2 == 1]
+    if not vocab_dims:
+        return torch.argmax(logits, dim=-1)
+    local = logits.to_local()
+    coordinate = mesh.get_coordinate()
+    shard, offset = local.shape[1], 0
+    for i in vocab_dims:  # major to minor, in mesh order
+        offset = offset * mesh.size(i) + coordinate[i]
+    offset *= shard
+    rows = (logits.shape[0],)
+
+    def reduced(t, op):
+        part = tuple(Partial(op) if i in vocab_dims else p for i, p in enumerate(pl))
+        whole = tuple(Replicate() if i in vocab_dims else p for i, p in enumerate(pl))
+        return DTensor.from_local(t, mesh, part, run_check=False, shape=rows,
+                                  stride=(1,)).redistribute(mesh, whole)
+
+    local_max = torch.amax(local, dim=-1)
+    first = torch.where(local_max == reduced(local_max, "max").to_local(),
+                        torch.argmax(local, dim=-1) + offset, logits.shape[1])
+    return reduced(first, "min")
 
 
 def cross_entropy_loss(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,

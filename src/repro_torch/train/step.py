@@ -9,15 +9,13 @@ donates its state).
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.distributed import current_mesh
-from repro_torch.distributed.sharding import batch_shardings, distribute, is_distributed
+from repro_torch.distributed.sharding import gathered, on_mesh
 from repro_torch.models.convert import STACKED
 from repro_torch.models.transformer import forward_train
 from repro_torch.optim import adamw_update, cosine_schedule
@@ -28,28 +26,12 @@ from repro_torch.train.state import TrainState
 Batch = Dict[str, torch.Tensor]
 
 
-def _on_mesh(params, batch: Batch):
-    """(batch, context) for a step: with a mesh context set and the
-    parameters DTensors, the batch distributed by ``batch_shardings`` and
-    ``implicit_replication`` (tensors the model makes, such as positions and
-    masks, read as replicated); else the batch as given, no context."""
-    ctx = current_mesh()
-    if ctx is None or not is_distributed(params.embed):
-        return batch, contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
-
-    shardings = batch_shardings(batch, ctx)
-    batch = {k: v if is_distributed(v) else distribute(v, shardings[k])
-             for k, v in batch.items()}
-    return batch, implicit_replication()
-
-
 def _loss_fn(params, cfg: ModelConfig, run: RunConfig, batch: Batch):
     """(total loss, {"loss", "aux", "accuracy"}) of one batch; a vlm's
     frontend positions take no loss."""
     hidden, extras = forward_train(params, cfg, run, batch["tokens"],
                                    frontend=batch.get("frontend"))
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    head = params.embed.T if cfg.tie_embeddings else gathered(params.lm_head)
     labels = batch["labels"]
     if hidden.shape[1] != labels.shape[1]:  # vlm: frontend positions unsupervised
         hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
@@ -63,10 +45,10 @@ def _loss_fn(params, cfg: ModelConfig, run: RunConfig, batch: Batch):
 def _grads(params, cfg: ModelConfig, run: RunConfig, batch: Batch):
     """(total loss, metrics, gradients by parameter name). Every parameter
     must get a gradient: one that the loss does not reach raises. On a mesh
-    (``_on_mesh``; backward included, as remat reruns the forward there)
+    (``sharding.on_mesh``; backward included, as remat reruns the forward there)
     the losses and gradients are DTensors."""
     named = dict(params.named_parameters())
-    batch, context = _on_mesh(params, batch)
+    batch, context = on_mesh(params.embed, batch)
     with context:
         total, metrics = _loss_fn(params, cfg, run, batch)
         grads = torch.autograd.grad(total, list(named.values()))
@@ -135,7 +117,7 @@ def train_step(state: TrainState, batch: Batch, cfg: ModelConfig,
 
 @torch.no_grad()
 def eval_step(state: TrainState, batch: Batch, cfg: ModelConfig, run: RunConfig):
-    batch, context = _on_mesh(state.params, batch)
+    batch, context = on_mesh(state.params.embed, batch)
     with context:
         _, metrics = _loss_fn(state.params, cfg, run, batch)
     return metrics

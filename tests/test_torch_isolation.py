@@ -63,8 +63,16 @@ def test_module_list_covers_the_slice():
                  "repro_torch.models.moe", "repro_torch.models.layers",
                  "repro_torch.distributed", "repro_torch.distributed.sharding",
                  "repro_torch.launch.mesh", "repro_torch.launch.elastic",
-                 "repro_torch.launch.specs"):
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.roofline_table"):
         assert name in MODULES
+
+
+def test_every_reference_module_has_its_port_file():
+    ref = ROOT / "src" / "repro"
+    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                     if not (ROOT / "src" / "repro_torch" / p.relative_to(ref)).exists())
+    assert missing == []
 
 
 def test_port_imports_neither_jax_nor_repro():
