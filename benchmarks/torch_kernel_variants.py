@@ -1,7 +1,10 @@
-"""Time edited copies of the port's K1 (RMSNorm) and K4 (SSD) sources beside
-the sources as they are, on one CUDA device:
+"""Time edited copies of the port's K1 (RMSNorm), K2 (flash attention) and
+K4 (SSD) sources beside the sources as they are, on one CUDA device:
 
-    python3 benchmarks/torch_kernel_variants.py
+    python3 benchmarks/torch_kernel_variants.py [--only PREFIX ...]
+
+``--only`` keeps the variants whose names start with one of the prefixes
+(``fa`` for K2's, ``rms``, ``ssd``).
 
 Each variant is a source of ``src/repro_torch/kernels/csrc`` with text
 replacements, compiled with the port's own nvcc flags into
@@ -13,12 +16,15 @@ timed. Times are ``chip_smoke.time_ms`` (device time, L2 flushed by writing
 64 MB), in two rounds in opposite orders. K1 also gets yardsticks on the same inputs:
 ``out.copy_(x)`` of the same bytes and ``F.rms_norm``, and the kernel, the
 copy and ``F.rms_norm`` again with the L2 emptied by reading 64 MB (clean
-lines) instead. One JSON line per measurement.
+lines) instead. K2's variants run at ``chip_smoke.py``'s timing shapes (bf16)
+beside ``scaled_dot_product_attention`` on the same inputs, whose kernels
+are named. One JSON line per measurement.
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import os
 import subprocess
@@ -35,6 +41,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 OUT = os.path.join(ROOT, "build", "variants")
 EXP2 = "sc[hf][e] = ok ? sc[hf][e] * exp2f(d * kLog2e) : 0.f;"
 WPR = "int wpr = rows <= kFewRows ? kWarps : 1;"
@@ -59,8 +66,26 @@ VARIANTS = {
     "rms_2warps": ("rmsnorm", [(WPR, "int wpr = rows <= kFewRows ? kWarps : 2;")]),
     "rms_4warps": ("rmsnorm", [(WPR, "int wpr = kWarps;")]),
     "rms_1warp_few_rows": ("rmsnorm", [(WPR, "int wpr = 1;")]),
+    "fa": ("flash_attention", []),
+    # Two consumer warpgroups (128 queries) a CTA and one CTA an SM at every
+    # head dim, D 32 and 64 too.
+    "fa_2wg": ("flash_attention", [("static constexpr int CONSUMERS = D <= 64 ? 1 : 2;",
+                                    "static constexpr int CONSUMERS = 2;"),
+                                   ("static constexpr int CTAS = D <= 64 ? 2 : 1;",
+                                    "static constexpr int CTAS = 1;")]),
+    "fa_2stages": ("flash_attention", [("constexpr int kStages = 4; ", "constexpr int kStages = 2; ")]),
+    # Tiles of 128 keys (two stages, to fit D 128's shared memory).
+    "fa_bk128": ("flash_attention", [("constexpr int kBK = 64; ", "constexpr int kBK = 128;"),
+                                     ("constexpr int kStages = 4; ", "constexpr int kStages = 2; ")]),
 }
 SSD_SHAPES = ((4, 2, 80, 256, 64, 64), (4, 2, 24, 256, 64, 128))  # zamba2, mamba2-130m
+# (b, s, t, h, kv, d, causal): chip_smoke.py's K2 timing shapes.
+FA_SHAPES = ((4, 512, 512, 32, 4, 64, True), (4, 512, 512, 32, 32, 80, True),
+             (4, 512, 512, 16, 16, 128, True), (4, 512, 512, 32, 8, 128, True),
+             (4, 512, 512, 32, 4, 128, True), (4, 512, 512, 48, 4, 128, True),
+             (4, 1088, 1088, 32, 32, 96, True), (4, 1500, 1500, 8, 8, 64, False),
+             (4, 64, 1500, 8, 8, 64, False), (4, 64, 64, 8, 8, 64, True),
+             (4, 448, 448, 8, 8, 64, True), (4, 448, 1500, 8, 8, 64, False))
 RMS_SHAPES = ((2048, 2048), (4, 2048), (2048, 2560), (4, 5120), (2048, 5120), (2048, 768),
               (2048, 1536))
 
@@ -90,6 +115,8 @@ def build_all():
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
         regs = [line.split("Used")[1].split(",")[0].strip() for line in out.splitlines()
                 if "Used" in line and "registers" in line]
+        regs += sorted({line.strip() for line in out.splitlines()
+                        if "spill" in line and not line.strip().startswith("0 bytes")})
         built[name] = (ctypes.CDLL(lib), regs)
     return built
 
@@ -118,6 +145,9 @@ def main() -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    only = sys.argv[sys.argv.index("--only") + 1:] if "--only" in sys.argv else []
+    for name in [n for n in VARIANTS if only and not n.startswith(tuple(only))]:
+        del VARIANTS[name]
     built = build_all()
     for name, (_, regs) in built.items():
         print(json.dumps({"variant": name, "registers": regs}))
@@ -149,6 +179,26 @@ def main() -> int:
                     ms = chip_smoke.time_ms(lambda: ssd.ssd_intra_chunk_cuda(*args))[0]
                     print(json.dumps({"variant": name, "round": rnd, "shape": [b, nc, h, q, p, n],
                                       "ms": ms, "max_abs_err": err}), flush=True)
+            elif base == "flash_attention":
+                for b, s, t, h, kv, d, causal in FA_SHAPES:
+                    q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+                    k, v = (torch.randn(b, t, kv, d, generator=gen, device="cuda").bfloat16()
+                            for _ in range(2))
+                    err = chip_smoke.compare(name, [b, s, t, h, kv, d, causal],
+                                             fa.flash_attention_cuda(q, k, v, causal=causal),
+                                             fa.flash_attention_plain(q, k, v, causal=causal),
+                                             )["max_abs_err"]
+                    row = {"variant": name, "round": rnd, "shape": [b, s, t, h, kv, d, causal],
+                           "max_abs_err": err,
+                           "ms": chip_smoke.time_ms(
+                               lambda: fa.flash_attention_cuda(q, k, v, causal=causal))[0]}
+                    if name == "fa" and rnd == 0:
+                        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                        lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                            qt, kt, vt, is_causal=causal, enable_gqa=True)
+                        row.update(library_ms=chip_smoke.time_ms(lib)[0],
+                                   library_kernels=chip_smoke.kernel_names(lib))
+                    print(json.dumps(row), flush=True)
             else:
                 for rows, d in RMS_SHAPES:
                     x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()

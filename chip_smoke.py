@@ -13,7 +13,10 @@ the repository is not beside it). It
    beside them; without the causal mask at whisper-base's encoder (1500
    frames) and cross-attention (64 queries against 1500 keys) and a ragged
    S != T; phi-3-vision's prefill (1088 positions, D 96, H = K = 32); the
-   decode caches of both, whisper's cross cache whole and phi-3-vision's at
+   bf16 attention kernel's tile edges (S and T of 1000 and 1499, a window
+   smaller than a KV tile with a query offset, D 32 at G 12, D 80 and 96
+   across swizzle boxes, q, k and v as strided slices of one fused
+   projection); the decode caches of both, whisper's cross cache whole and phi-3-vision's at
    lengths past its T; RMSNorm at d 4096 and 6144 and over qwen3-8b's q/k
    rows of 128, attention and decode at D 128 with G 4 (qwen3-8b), 8
    (yi-9b) and 12 (starcoder2-15b); the SSD step on both of its
@@ -22,7 +25,8 @@ the repository is not beside it). It
    f32 form, and its wrapper at P and N the kernel cuts into pieces) and at
    ragged shapes, and times the kernel, the
    plain version and the one PyTorch library call that computes the same
-   function, where there is one (timed only; the port never calls it),
+   function, where there is one (timed only; the port never calls it; the
+   kernels SDPA launched are named beside attention's times),
    against the least time the card could take (``bound_ms``), with the
    card's clocks read after each timing;
 4. serves random prompts through ``ServeEngine.generate`` at full width
@@ -350,6 +354,20 @@ def timing(shape, kernel, plain, library, *, flops, nbytes, peak):
     return row
 
 
+def kernel_names(fn):
+    """Names of the CUDA kernels one call of ``fn`` launches (a library
+    call's backend, read from a torch.profiler trace), in launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return list(dict.fromkeys(n[:120] for n in names))
+
+
 def clocks():
     """The card's SM and memory clocks (MHz) and its active clock-limit
     reasons, as nvidia-smi reads them now; the query's error text where this
@@ -504,7 +522,19 @@ def check_kernels(port):
                 # D 128 at G 4 (qwen3-8b), 8 (yi-9b) and 12 (starcoder2-15b).
                 (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 8, 128, 0, 0, 0.0),
                 (BATCH, PROMPT_LEN, PROMPT_LEN, 32, 4, 128, 0, 0, 0.0),
-                (BATCH, PROMPT_LEN, PROMPT_LEN, 48, 4, 128, 0, 0, 0.0)):
+                (BATCH, PROMPT_LEN, PROMPT_LEN, 48, 4, 128, 0, 0, 0.0),
+                # The bf16 kernel's tiles (128 queries, 64 keys, swizzle
+                # boxes of 64, 32 or 16 dims): S and T multiples of neither,
+                # causal and not, at D 64, 96 (64 + 32) and 80 (five boxes
+                # of 16); a window smaller than one KV tile with a query
+                # offset; G 12 at D 32 (one box of 32) and G 8 at D 80.
+                (2, 1000, 1000, 8, 2, 64, 0, 0, 0.0),
+                (2, 1000, 1499, 8, 8, 96, 0, 0, 0.0, False),
+                (2, 1000, 1499, 16, 2, 80, 0, 0, 0.0),
+                (2, 300, 700, 16, 4, 64, 40, 400, 0.0),
+                (2, 200, 333, 12, 1, 32, 0, 133, 0.0),
+                (2, 200, 333, 12, 1, 32, 0, 0, 0.0, False),
+                (2, 333, 333, 16, 2, 80, 50, 0, 30.0)):
             q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, t, kv, d, dtype=dtype), \
                 rnd(b, t, kv, d, dtype=dtype)
             kw = dict(causal=causal == [], window=win, q_offset=qoff, softcap=cap)
@@ -513,6 +543,18 @@ def check_kernels(port):
                                   ops.flash_attention(q, k, v, **kw),
                                   fa.flash_attention_plain(q, k, v, **kw)))
             del q, k, v
+        # q, k and v as strided head slices of one fused projection, the
+        # layout a fused QKV split would give models/layers.py: rows
+        # (H + 2K) * D apart, which TMA reads in place.
+        for b, s, h, kv, d in ((BATCH, PROMPT_LEN, 32, 4, 64), (2, 77, 24, 8, 96)):
+            y = rnd(b, s, (h + 2 * kv) * d, dtype=dtype)
+            q = y[..., :h * d].view(b, s, h, d)
+            k = y[..., h * d:(h + kv) * d].view(b, s, kv, d)
+            v = y[..., (h + kv) * d:].view(b, s, kv, d)
+            checks.append(compare("flash_attention", [b, s, s, h, kv, d, "fused qkv view"],
+                                  ops.flash_attention(q, k, v),
+                                  fa.flash_attention_plain(q, k, v)))
+            del y, q, k, v
     timings = []
     dt = torch.bfloat16
     # (b, s, t, h, kv, d, causal): the served prefills, then whisper-base's
@@ -542,6 +584,10 @@ def check_kernels(port):
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                    enable_gqa=True),
             flops=4 * b * h * d * pairs, nbytes=nbytes(q, k, v, q), peak=PEAK_BF16_FLOPS))
+        # The yardstick's backend, by the kernels it launched.
+        timings[-1]["library_kernels"] = kernel_names(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True))
+        log(json.dumps({"flash_attention_timing": timings[-1]}))
     results["flash_attention"] = dict(checks=checks, timings=timings)
 
     # K3: the decode caches (T = prompt + new tokens) of the serve shapes
@@ -2931,7 +2977,8 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "shape": t["shape"],
-                     "timings": [{key: r[key] for key in keys} for r in k["timings"]],
+                     "timings": [{key: r[key] for key in keys + ("library_kernels",) if key in r}
+                                 for r in k["timings"]],
                      "backward": backward and {"function": backward,
                                                **backward_timings[backward]}})
     log(json.dumps({"kernels": rows}))

@@ -1,7 +1,8 @@
 // Asynchronous copies and warp-level tensor-core tiles (sm_80 and later,
 // built here for sm_90a): cp.async of 16 or 4 bytes with zero fill, ldmatrix of
 // four 8x8 b16 tiles (plain and transposed) and mma.sync m16n8k16 on bf16
-// with f32 accumulation.
+// with f32 accumulation. (The bf16 split of a product's operand,
+// ``split_bf16``, is in common.cuh.)
 //
 // Fragment layouts (lane = 4 * group + quad, PTX ISA "Matrix fragments for
 // mma.m16n8k16"), used by the kernels that include this header:
@@ -72,19 +73,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 in one register, ``lo`` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// p0, p1 as two bf16 terms each, hi + lo, exact to about 16 bits: hi holds
-// bf16(p0), bf16(p1) and lo the rounded remainders, both packed as above.
-__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uint32_t& lo) {
-  hi = pack_bf16(p0, p1);
-  lo = pack_bf16(p0 - __uint_as_float(hi << 16), p1 - __uint_as_float(hi & 0xffff0000u));
 }
 
 }  // namespace repro

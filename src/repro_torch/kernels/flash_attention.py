@@ -7,9 +7,13 @@ S and T work, skip KV tiles no query can see, and give 0 for a query that
 sees no key. Query i sits at position ``i + q_offset``; ``softcap > 0``
 caps the scores as ``softcap * tanh(s / softcap)``, as
 ``repro.models.layers.chunked_attention`` does. The kernel
-(``csrc/flash_attention.cu``: bf16 on the tensor cores, f32 on the CUDA
-cores) replaces the TPU kernel
-``repro/kernels/flash_attention.py:flash_attention_bhsd``.
+(``csrc/flash_attention.cu``: bf16 on Hopper's wgmma, fed by TMA; f32 on
+the CUDA cores) replaces the TPU kernel
+``repro/kernels/flash_attention.py:flash_attention_bhsd``. TMA reads the
+bf16 q, k and v through tensor maps (the f32 kernel in 16-byte vectors),
+so each must start on 16 bytes and have batch and sequence strides of
+whole 16 bytes (:func:`check_tma_layout`); the wrapper raises on any
+other, and copies nothing.
 
 Its gradient (``flash_attention_backward``) is plain PyTorch in f32, run by
 ``ops.FlashAttention``'s backward: the reference differentiates through its
@@ -172,18 +176,42 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"match q {tuple(q.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes D in {HEAD_DIMS}, got {d}")
-    vec = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1 or x.stride(2) != d or x.stride(0) % vec or x.stride(1) % vec:
+        if x.stride(3) != 1 or x.stride(2) != d:
             raise ValueError(f"flash attention kernel needs {name} with unit "
-                             f"stride over D, heads D apart and 16-byte aligned "
-                             f"rows, got strides {x.stride()}")
+                             f"stride over D and heads D apart, got strides "
+                             f"{x.stride()}")
+
+
+def _strides(x: torch.Tensor) -> tuple:
+    """(batch, sequence) strides of a (B, S, H, D) tensor, where a dim of
+    size 1 takes the stride a contiguous tensor would give it (its own is
+    never read, and may be anything)."""
+    s_row = x.stride(1) if x.shape[1] > 1 else x.shape[2] * x.shape[3]
+    s_b = x.stride(0) if x.shape[0] > 1 else x.shape[1] * s_row
+    return s_b, s_row
+
+
+def check_tma_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless the kernels can read q, k and v in place: each starts on
+    a 16-byte boundary and steps over its batch and sequence dims by whole
+    16 bytes (``_strides``), as the bf16 kernel's TMA tensor maps and the
+    f32 kernel's vector loads require. Device-independent, so it runs
+    before anything is built."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        size = x.element_size()
+        if x.data_ptr() % 16 or any(st * size % 16 for st in _strides(x)):
+            raise ValueError(f"flash attention kernel (TMA) needs {name} 16-byte "
+                             f"aligned with batch and sequence strides of whole "
+                             f"16 bytes, got address {x.data_ptr():#x} and strides "
+                             f"{x.stride()} of {size}-byte elements")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0, q_offset: int = 0,
                          softcap: float = 0.0) -> torch.Tensor:
     """Launch the kernel; the output is a new contiguous (B,S,H,D) tensor."""
+    check_tma_layout(q, k, v)
     _check(q, k, v)
     if q_offset < 0:
         raise ValueError(f"flash attention kernel needs q_offset >= 0, got {q_offset}")
@@ -199,8 +227,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check("flash_attention", fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, t, h, n_kv, d,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        *_strides(q), *_strides(k), *_strides(v), out.stride(0), out.stride(1),
         int(causal), int(window), int(q_offset), 1.0 / math.sqrt(d), float(softcap),
         _build.stream()))
     return out

@@ -23,6 +23,7 @@ from repro_torch.kernels import ref as torch_ref
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
+jax_flash_module = importlib.import_module("repro.kernels.flash_attention")
 da = importlib.import_module("repro_torch.kernels.decode_attention")
 rms = importlib.import_module("repro_torch.kernels.rmsnorm")
 
@@ -87,6 +88,80 @@ def test_flash_attention_ragged_matches_ref(dtype, s, t, h, kh, d, causal, windo
     want = _flat_ref(jq, jk, jv, causal, window)
     _close(ops.flash_attention(tq, tk, tv, causal=causal, window=window), want,
            DTYPES[dtype][2])
+
+
+def _bhsd(x, g):
+    """(B,S,K,D) -> (B*K*G, S, D), each KV head repeated for its G query
+    heads (the reference wrapper's layout)."""
+    b, s, k, d = x.shape
+    return jnp.repeat(x, g, axis=2).transpose(0, 2, 1, 3).reshape(b * k * g, s, d)
+
+
+# (mask, S, T, window) for the plain version at the kernel's tile: causal
+# over two KV tiles, a window smaller than one tile, and unmasked S != T.
+_TILE_MASKS = {"causal": (128, 256, True, 0), "window": (128, 256, True, 48),
+               "unmasked": (128, 384, False, 0)}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("extra", ["q_offset", "softcap"])
+@pytest.mark.parametrize("mask", list(_TILE_MASKS))
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_plain_at_kernel_tile_matches_pallas(dtype, extra, mask, d):
+    """flash_attention_plain, which walks KV tiles of the bf16 kernel's
+    BLOCK_K keys, against the Pallas kernel (interpret mode, block_k =
+    BLOCK_K) at every head dim. Pallas puts query i at position i, so a
+    query offset is given to it as S queries in rows q_offset.. of a zero
+    query block as long as the keys, and only those rows are compared; it
+    has no softcap, so the capped cases hold to the reference model's
+    naive_attention instead."""
+    s, t, causal, window = _TILE_MASKS[mask]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(12, dtype, (1, s, 2, d), (1, t, 1, d), (1, t, 1, d))
+    q_offset = t - s if extra == "q_offset" else 0
+    softcap = 30.0 if extra == "softcap" else 0.0
+    got = fa.flash_attention_plain(tq, tk, tv, causal=causal, window=window,
+                                   q_offset=q_offset, softcap=softcap)
+    if extra == "softcap":
+        from repro.models import layers as jax_layers
+
+        want = jax_layers.naive_attention(jq, jk, jv, causal, window, q_offset, softcap)
+    else:
+        rows = t if causal else s  # queries at positions 0 .. rows - 1
+        qpad = jnp.zeros((1, rows, 2, d), jq.dtype).at[:, rows - s:].set(jq)
+        out = jax_flash_module.flash_attention_bhsd(
+            _bhsd(qpad, 1), _bhsd(jk, 2), _bhsd(jv, 2), causal=causal, window=window,
+            block_q=128, block_k=fa.BLOCK_K, interpret=True)
+        want = out.reshape(1, 2, rows, d).transpose(0, 2, 1, 3)[:, rows - s:]
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("layout", ["misaligned", "odd_stride", "fused_split"])
+def test_tma_layout_check_runs_before_any_build(layout, monkeypatch):
+    """The wrapper refuses, on CPU tensors and before anything is built, a
+    q whose address or sequence stride is not a whole 16 bytes (TMA's
+    rule); a head slice of a fused projection, as a fused QKV split would
+    make it, meets the rule and goes on to the device check."""
+    from repro_torch.kernels import _build
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the wrapper reached the build")
+
+    monkeypatch.setattr(_build, "entry", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    kv = torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16)
+    if layout == "misaligned":
+        q = torch.zeros(2 * 16 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 16, 4, 64)
+    elif layout == "odd_stride":  # rows 520 bytes apart
+        q = torch.zeros(2, 16, 260, dtype=torch.bfloat16)[..., :256].view(2, 16, 4, 64)
+    else:
+        q = torch.zeros(2, 16, 3 * 256, dtype=torch.bfloat16)[..., :256].view(2, 16, 4, 64)
+    if layout == "fused_split":
+        fa.check_tma_layout(q, kv, kv)
+        with pytest.raises(ValueError, match="CUDA"):
+            fa.flash_attention_cuda(q, kv, kv)
+    else:
+        with pytest.raises(ValueError, match="TMA"):
+            fa.flash_attention_cuda(q, kv, kv)
 
 
 def _decode_inputs(seed, dtype, b, t, h, kh, d, lengths):
