@@ -354,6 +354,23 @@ def timing(shape, kernel, plain, library, *, flops, nbytes, peak):
     return row
 
 
+def host_us(fn, calls=100, batches=5):
+    """Host microseconds per call of ``fn``: the enqueue of ``calls`` calls
+    back to back, before one synchronize (a wrapper's Python, ctypes and
+    launch cost, where the device keeps up); the least of ``batches`` such
+    batches, since other work on a shared host only adds time."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
 def kernel_names(fn):
     """Names of the CUDA kernels one call of ``fn`` launches (a library
     call's backend, read from a torch.profiler trace), in launch order."""
@@ -653,6 +670,7 @@ def check_kernels(port):
             lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
             flops=4 * b * h * d * n, nbytes=read + 2 * nbytes(q) + nbytes(lengths),
             peak=PEAK_BF16_FLOPS))
+        timings[-1]["host_us"] = host_us(lambda: ops.flash_decode(q, k, v, lengths))
     results["flash_decode"] = dict(checks=checks, timings=timings)
 
     # K4: the prefill shapes of zamba2-2.7b (H 80, N 64) and mamba2-130m
@@ -702,8 +720,9 @@ def check_kernels(port):
                   (1, 1, 2, 64, 64, 320)):
         for dtype in (torch.float32, torch.bfloat16):
             check_ssd(shape, dtype)
-    # Rows the tensor-core path cannot copy in 16-byte pieces: B/C of N 44
-    # and xdt one float off alignment (a view of a 65-wide buffer).
+    # Inputs the tensor-core path's TMA cannot read where they lie (the
+    # wrapper copies them into rows it can): B/C of N 44 and xdt one float
+    # off alignment (a view of a 65-wide buffer).
     for dtype in (torch.float32, torch.bfloat16):
         check_ssd((2, 1, 4, 77, 64, 44), dtype, x_offset=1)
     # Both paths at both serve shapes, bf16 (the served one) first. The
@@ -2966,7 +2985,8 @@ def main() -> int:
     for kname, (src, replaces) in sources.items():
         k = kernels[kname]
         t = k["timings"][0]
-        keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "clocks")
+        keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us",
+                "clocks")
         backward = {"fused_rmsnorm": "FusedRMSNorm.backward",
                     "flash_attention": "FlashAttention.backward",
                     "ssd_chunk_dual": "SSDChunkDual.backward"}.get(kname)

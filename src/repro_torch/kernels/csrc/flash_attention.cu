@@ -62,7 +62,8 @@
 //    in the grid, so that their K/V tiles are read from L2 after the first.
 //  - The tensor maps (4-D: D, heads, S or T, B, with the caller's strides)
 //    are encoded per call on the host by cuTensorMapEncodeTiled, reached
-//    through cudaGetDriverEntryPoint, so the library links no libcuda. TMA
+//    through cudaGetDriverEntryPoint (hopper.cuh::encode_map), so the
+//    library links no libcuda. TMA
 //    needs 16-byte-aligned bases and strides that are multiples of 16
 //    bytes; the wrapper checks both. Rows past S or T arrive as zeros and
 //    are masked.
@@ -593,35 +594,10 @@ struct Args {
   float scale, softcap;
 };
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, looked up once; null if the driver
-// has none.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A 4-D map (D, heads, rows, batch) over a bf16 tensor whose heads lie D
 // apart, boxes of (W, 1, box_rows, 1) with the swizzle of Tiles<D>.
 template <int D>
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads, int rows, int batch,
+bool encode(CUtensorMap* map, const void* ptr, int heads, int rows, int batch,
             long long row_stride, long long batch_stride, int box_rows) {
   using T = Tiles<D>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
@@ -631,13 +607,8 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads, int ro
                                  static_cast<cuuint64_t>(batch_stride) * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(T::W), 1u,
                              static_cast<cuuint32_t>(box_rows), 1u};
-  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  const CUtensorMapSwizzle swizzle = T::W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : T::W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return repro::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box,
+                           2 * T::W);
 }
 
 template <int D>
@@ -650,14 +621,13 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  if (repro::tensor_map_encoder() == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   if ((a.st[0] | a.st[1] | a.st[2] | a.st[3] | a.st[4] | a.st[5]) % 8 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);  // TMA: strides of 16 bytes
   CUtensorMap qm, km, vm;
-  if (!encode<D>(fn, &qm, a.q, a.h, a.s, a.b, a.st[1], a.st[0], Shape<D>::BQ) ||
-      !encode<D>(fn, &km, a.k, a.kv, a.t, a.b, a.st[3], a.st[2], kBK) ||
-      !encode<D>(fn, &vm, a.v, a.kv, a.t, a.b, a.st[5], a.st[4], kBK))
+  if (!encode<D>(&qm, a.q, a.h, a.s, a.b, a.st[1], a.st[0], Shape<D>::BQ) ||
+      !encode<D>(&km, a.k, a.kv, a.t, a.b, a.st[3], a.st[2], kBK) ||
+      !encode<D>(&vm, a.v, a.kv, a.t, a.b, a.st[5], a.st[4], kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = (a.s + Shape<D>::BQ - 1) / Shape<D>::BQ * a.b * a.h;
   flash_attention_bf16_kernel<D><<<grid, Shape<D>::THREADS, smem, stream>>>(

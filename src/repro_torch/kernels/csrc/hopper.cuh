@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks: mbarriers, TMA tile loads, warpgroup
-// register reallocation, and wgmma on bf16 with f32 accumulation, with its
-// shared-memory matrix descriptors.
+// Hopper (sm_90a) building blocks: mbarriers, TMA tile loads and the host
+// side of their tensor maps, warpgroup register reallocation, and wgmma on
+// bf16 with f32 accumulation, with its shared-memory matrix descriptors.
 //
 // wgmma accumulator layout (m64nN, f32; PTX ISA "Matrix fragments for
 // wgmma"): warp w of the warpgroup holds rows 16w .. 16w + 15; for each
@@ -83,6 +83,32 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// The 5-D form of tma_load_4d.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(bar)
+      : "memory");
+}
+
+// Make this thread's shared-memory writes visible to the async proxy (a
+// later wgmma reading them as an operand); each writing thread fences
+// before it signals the readers.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset ``off`` (from a 1024-byte-aligned tile) as TMA's 128-, 64- or
+// 32-byte swizzle stores it: the 16-byte chunk index (bits 4..6) XOR the
+// 128-byte line index (bits 7..9), masked to 3, 2 or 1 bits (``mask`` 7, 3
+// or 1). Readers and writers of a swizzled tile on the CUDA cores use it.
+__device__ __forceinline__ uint32_t swizzle(uint32_t off, uint32_t mask) {
+  return off ^ (((off >> 7) & mask) << 4);
 }
 
 // ---- warpgroups -------------------------------------------------------------
@@ -188,6 +214,40 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// wgmma_ss_tt: A and B from shared memory, both MN-major (A transposed: its
+// M dim contiguous, as a K-major tile of A^T is stored); d += A.B.
+template <int N>
+__device__ void wgmma_ss_tt(float (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tt<32>(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tt<64>(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 template <int N>
 __device__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
 
@@ -281,6 +341,52 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t 
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---- tensor maps (host) --------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The CUDA driver's cuTensorMapEncodeTiled, looked up once through the
+// runtime (so that a library links no libcuda); null where it is missing.
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tiled map of ``rank`` dims (innermost first; byte strides of dims 1..)
+// with boxes of ``box`` elements; elements outside the tensor load as zeros.
+// ``swizzle_bytes``: 128, 64, 32 or 0 (none). False where the encoding is
+// refused.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+                       const cuuint64_t* dims, const cuuint64_t* byte_strides,
+                       const cuuint32_t* box, int swizzle_bytes) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem[5] = {1u, 1u, 1u, 1u, 1u};
+  const CUtensorMapSwizzle swizzle = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                           : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), dims, byte_strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace repro

@@ -1,7 +1,7 @@
 // Asynchronous copies and warp-level tensor-core tiles (sm_80 and later,
 // built here for sm_90a): cp.async of 16 or 4 bytes with zero fill, ldmatrix of
-// four 8x8 b16 tiles (plain and transposed) and mma.sync m16n8k16 on bf16
-// with f32 accumulation. (The bf16 split of a product's operand,
+// four 8x8 b16 tiles (plain and transposed), movmatrix's transpose of one,
+// and mma.sync m16n8k16 on bf16 with f32 accumulation. (The bf16 split of a product's operand,
 // ``split_bf16``, is in common.cuh.)
 //
 // Fragment layouts (lane = 4 * group + quad, PTX ISA "Matrix fragments for
@@ -63,6 +63,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// The 8x8 b16 matrix whose fragment this lane holds (row group, cols
+// 2*quad, +1, as a C or A fragment) transposed, in the same layout.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
 // d += a * b on one 16 x 8 x 16 tile.

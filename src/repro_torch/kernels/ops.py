@@ -45,7 +45,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_backward,
 from repro_torch.kernels.rmsnorm import (rmsnorm_rows_backward, rmsnorm_rows_cuda,
                                          rmsnorm_rows_plain)
 from repro_torch.kernels.ssd_scan import (ssd_intra_chunk_backward, ssd_intra_chunk_cuda,
-                                          ssd_intra_chunk_plain)
+                                          ssd_intra_chunk_plain, tma_ready as ssd_tma_ready)
 
 LAUNCHES: Dict[str, int] = {"fused_rmsnorm": 0, "flash_attention": 0,
                             "flash_decode": 0, "ssd_chunk_dual": 0}
@@ -151,8 +151,11 @@ def _attention(q, k, v, kw) -> torch.Tensor:
 def _ssd(xdt, cum, bm, cm):
     if not xdt.is_cuda:
         return ssd_intra_chunk_plain(xdt, cum, bm, cm)
-    # The kernel reads strided views but needs unit stride over P and N.
+    # The kernel reads strided views but needs unit stride over P and N,
+    # and on bf16 B/C the starts and strides its tensor maps take.
     xdt, bm, cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (xdt, bm, cm))
+    if bm.dtype == torch.bfloat16:
+        xdt, bm, cm = ssd_tma_ready(xdt, bm, cm)
     out = ssd_intra_chunk_cuda(xdt, cum, bm, cm)
     LAUNCHES["ssd_chunk_dual"] += 1
     return out
@@ -253,7 +256,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  lengths: torch.Tensor, *, window: int = 0,
                  softcap: float = 0.0) -> torch.Tensor:
     """q (B,1,H,D); k/v cache (B,T,K,D); lengths (B,) -> (B,1,H,D). One
-    launch counts both passes (split and combine) of one call."""
+    launch counts one call: bf16's single clustered launch, or the f32
+    path's two passes (split and combine)."""
     if _is_dtensor(q, k_cache, v_cache):
         for what, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
             _whole("flash_decode", what, t, (1, 3))

@@ -11,11 +11,16 @@ in f32 or bf16; they return y (B,NC,H,Q,P) and the chunk states (B,NC,H,N,P)
 in f32. The exponent is masked to j <= i before ``exp``, so the upper
 triangle cannot overflow into inf * 0. Any Q works: rows and keys past Q
 are masked, not padded. The dtype of B and C picks the kernel's path: bf16
-runs the products on the tensor cores, with the masked scores M, xdt and
-the state's weighted xdt each entering as two bf16 terms hi + lo; f32 runs
-them on the CUDA cores in f32. The kernel takes P in ``HEAD_DIMS`` and N up
-to ``MAX_STATE``; :func:`in_kernel_pieces` runs any other P and N through it
-in pieces (P zero-padded or cut in slices of 128, N cut in slices of 256).
+runs the products on Hopper's tensor cores (wgmma, fed by TMA), with the
+masked scores M, xdt and the state's weighted xdt each entering as two bf16
+terms hi + lo; f32 runs them on the CUDA cores in f32. The kernel takes P in
+``HEAD_DIMS`` and N up to ``MAX_STATE``; :func:`in_kernel_pieces` runs any
+other P and N through it in pieces (P zero-padded or cut in slices of 64, N
+cut in slices of 128). On the bf16 path TMA reads xdt, B and C through
+tensor maps, which need 16-byte-aligned starts and strides
+(:func:`check_tma_layout`, which the launcher runs before anything is
+built); :func:`tma_ready` copies an input that misses the rule into one
+that meets it, and ``ops.ssd_chunk_dual`` passes its inputs through it.
 The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
 ``repro/kernels/ssd_scan.py:ssd_intra_chunk``; the inter-chunk recurrence
 stays with the caller (``models/mamba2.py:ssd_chunked``).
@@ -30,8 +35,8 @@ import torch
 from repro_torch.kernels import _build
 
 B_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (32, 64, 128)
-MAX_STATE = 256
+HEAD_DIMS = (32, 64)
+MAX_STATE = 128
 BLOCK = 64  # keys per key tile, as in the kernel
 # Elements of the (B,NC,heads,Q,Q) f32 tensors of one head block of the
 # backward (32 MiB each; zamba2's training shape takes 16 heads a block).
@@ -150,10 +155,11 @@ def in_kernel_pieces(run, xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor
 
     The P columns of xdt are independent, so P is cut into slices of
     ``max(HEAD_DIMS)`` and each slice zero-padded to the next width the kernel
-    takes; y and the states are cut back. y is linear in the score sum C.B^T
-    over N, so N is cut into slices of MAX_STATE: y is the sum of the
-    slices' y and the states are the slices' states side by side along N.
-    An input the kernel takes goes through in one piece, as it is."""
+    takes (into the model's (B,NC,Q,H,P) layout); y and the states are cut
+    back. y is linear in the score sum C.B^T over N, so N is cut into slices
+    of MAX_STATE: y is the sum of the slices' y and the states are the
+    slices' states side by side along N. An input the kernel takes goes
+    through in one piece, as it is."""
     p, n = xdt.shape[-1], bm.shape[-1]
     if (p in HEAD_DIMS and n <= MAX_STATE) or p == 0 or n == 0:
         return run(xdt, cum, bm, cm)
@@ -163,7 +169,10 @@ def in_kernel_pieces(run, xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor
         width = part.shape[-1]
         padded = min(w for w in HEAD_DIMS if w >= width)
         if padded != width:
-            part = torch.nn.functional.pad(part, (0, padded - width))
+            b, nc, h, q, _ = part.shape
+            wide = part.new_zeros((b, nc, q, h, padded)).permute(0, 1, 3, 2, 4)
+            wide[..., :width] = part
+            part = wide
         y_p, s_p = None, []
         for n0 in range(0, n, MAX_STATE):
             y_n, s_n = run(part, cum, bm[..., n0:n0 + MAX_STATE], cm[..., n0:n0 + MAX_STATE])
@@ -172,6 +181,42 @@ def in_kernel_pieces(run, xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor
         ys.append(y_p[..., :width])
         states.append(torch.cat(s_p, dim=-2)[..., :width])
     return torch.cat(ys, dim=-1), torch.cat(states, dim=-1)
+
+
+def _tma_misses(x: torch.Tensor, unit: int) -> bool:
+    """Whether x's start or its strides but the last (unit) one are not whole
+    16 bytes: ``unit`` elements."""
+    return x.data_ptr() % 16 != 0 or any(st % unit for st in x.stride()[:-1])
+
+
+def check_tma_layout(xdt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor) -> None:
+    """Raise where bf16 B/C's kernel cannot build its tensor maps: xdt, B and
+    C must start on 16 bytes and have strides of whole 16 bytes (unit
+    stride over P and N). Runs on any device, before anything is built."""
+    if bm.dtype != torch.bfloat16:
+        return
+    for name, x, unit in (("xdt", xdt, 4), ("B", bm, 8), ("C", cm, 8)):
+        if x.stride(-1) != 1 or _tma_misses(x, unit):
+            raise ValueError(f"ssd kernel (TMA) needs {name} to start on 16 bytes with "
+                             f"strides of whole 16 bytes and unit stride last, got address "
+                             f"{x.data_ptr():#x}, strides {x.stride()}")
+
+
+def tma_ready(xdt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor):
+    """xdt, B and C, each copied where it misses :func:`check_tma_layout`'s
+    rule: xdt into the model's (B,NC,Q,H,P) layout, B and C into rows of N
+    rounded up to 8 (a view of the first N columns)."""
+    if _tma_misses(xdt, 4) or xdt.stride(-1) != 1:
+        b, nc, h, q, p = xdt.shape
+        xdt = xdt.new_empty((b, nc, q, h, p)).permute(0, 1, 3, 2, 4).copy_(xdt)
+
+    def rows(t):
+        if not _tma_misses(t, 8) and t.stride(-1) == 1:
+            return t
+        n = t.shape[-1]
+        return t.new_zeros((*t.shape[:-1], -(-n // 8) * 8))[..., :n].copy_(t)
+
+    return xdt, rows(bm), rows(cm)
 
 
 def _check(xdt, cum, bm, cm) -> None:
@@ -215,6 +260,7 @@ def _launch(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor, cm: torch.Te
     y is returned as a (B,NC,H,Q,P) view of a (B,NC,Q,H,P) tensor, the
     layout the model adds it to; the states are contiguous.
     """
+    check_tma_layout(xdt, bm, cm)
     _check(xdt, cum, bm, cm)
     b, nc, h, q, p = xdt.shape
     n = bm.shape[3]

@@ -117,8 +117,8 @@ def _decode_inputs(seed, dtype, t, h, kh, d, lengths):
     (576, 8, 2, 64, [544, 400, 130, 65], 100, 0.0),   # window across split edges
     (100, 4, 4, 80, [1, 37, 99], 0, 30.0),         # softcap, zamba2's head dim
     (90, 8, 2, 32, [5, 90], 16, 30.0),             # window and softcap
-    (130, 64, 1, 64, [1, 64, 130], 0, 0.0),        # G = 64: two head groups
-    (70, 40, 1, 32, [70, 33], 8, 0.0),             # G = 40, the second group of 8
+    (130, 64, 1, 64, [1, 64, 130], 0, 0.0),        # G = 64: four head groups
+    (70, 40, 1, 32, [70, 33], 8, 0.0),             # G = 40, the third group of 8
 ])
 def test_flash_decode_options_match_layers(dtype, t, h, kh, d, lengths, window,
                                            softcap):
@@ -130,12 +130,13 @@ def test_flash_decode_options_match_layers(dtype, t, h, kh, d, lengths, window,
 
 @pytest.mark.parametrize("t,ctas,want", [
     (576, 16, (9, 64)),      # tinyllama's decode: B 4 x 4 KV heads, 144 CTAs
-    (576, 128, (3, 192)),    # zamba2's: B 4 x 32 KV heads, 384 CTAs
+    (576, 128, (2, 320)),    # zamba2's: B 4 x 32 KV heads, 256 CTAs
     (576, 512, (1, 576)),    # enough CTAs without a split
     (64, 1, (1, 64)),        # one split of one tile
     (65, 1, (2, 64)),
     (5, 3, (1, 64)),
-    (32768, 16, (17, 1984)),
+    (32768, 16, (9, 3648)),
+    (32768, 4, (16, 2048)),    # at most one cluster of 16 splits
 ])
 def test_split_count_depends_on_capacity_and_ctas(t, ctas, want):
     n, split_len = da.num_splits(t, ctas)
@@ -151,12 +152,12 @@ def test_split_count_ignores_lengths():
             for n in (1, 544)]
     assert all(torch.isfinite(o).all() for o in outs)
     assert da.num_splits(576, 4 * 4 * da.head_groups(8)) == (9, 64)
-    assert da.head_groups(32) == 1 and da.head_groups(33) == 2 and da.head_groups(64) == 2
+    assert da.head_groups(16) == 1 and da.head_groups(17) == 2 and da.head_groups(64) == 4
 
 
 @pytest.mark.parametrize("t,kh,lengths,window", [
     (576, 4, [0, 1, 64, 65, 576], 0),    # 9 splits of 64
-    (576, 32, [0, 1, 64, 65, 576], 0),   # 3 splits of 192
+    (576, 8, [0, 1, 64, 65, 576], 0),    # 3 splits of 192
     (576, 4, [0, 1, 64, 65, 576], 100),  # the window's edge inside a split
     (130, 2, [0, 1, 64, 65, 130], 0),    # a ragged last split
 ])
@@ -187,8 +188,8 @@ def _kernel_shapes_only(*args):
 @pytest.mark.parametrize("q,p,n", [(8, 16, 64), (64, 96, 64), (64, 160, 32),
                                    (64, 64, 320), (77, 160, 300)])
 def test_ssd_pieces_match_ref(q, p, n):
-    """P is zero-padded (16 -> 32, 96 -> 128) or cut (160 = 128 + 32) and N
-    cut in slices of 256; the joined result equals the reference's."""
+    """P is zero-padded (16 -> 32) or cut (96 = 64 + 32, 160 = 64 + 64 + 32)
+    and N cut in slices of 128; the joined result equals the reference's."""
     rng = np.random.default_rng(5)
     xdt = (rng.standard_normal((1, 2, 2, q, p)) * 0.1).astype(np.float32)
     cum = -np.cumsum(rng.uniform(0, 1, (1, 2, 2, q)), axis=-1).astype(np.float32)
@@ -205,7 +206,8 @@ def test_ssd_pieces_match_ref(q, p, n):
 def test_ssd_kernel_shapes_go_through_whole():
     rng = np.random.default_rng(6)
     args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-            for s in ((1, 1, 2, 8, 64), (1, 1, 2, 8), (1, 1, 8, 256), (1, 1, 8, 256))]
+            for s in ((1, 1, 2, 8, 64), (1, 1, 2, 8), (1, 1, 8, ss.MAX_STATE),
+                      (1, 1, 8, ss.MAX_STATE))]
     calls = []
     ss.in_kernel_pieces(lambda *a: calls.append(a) or ss.ssd_intra_chunk_plain(*a), *args)
     assert len(calls) == 1 and all(c is a for c, a in zip(calls[0], args))

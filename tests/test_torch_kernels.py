@@ -6,8 +6,10 @@ Tolerances are those of test_kernels.py: f32 2e-5 (summation order), bf16
 2e-2 (one bf16 rounding of the output)."""
 
 import importlib
+import inspect
 import pathlib
 
+import hypothesis
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,6 +183,73 @@ def test_flash_decode_matches_pallas(dtype, t, h, kh, d, bk):
     jx, tx = _decode_inputs(3, dtype, 2, t, h, kh, d, [t // 3, t])
     want = jax_decode(*jx, block_k=bk, interpret=True)
     _close(ops.flash_decode(*tx), want, DTYPES[dtype][2])
+
+# The served split counts of K3: (T, CTAs a split of the served shape, Pallas
+# block). tinyllama-1.1b's and zamba2-2.7b's caches of 576 slots (9 splits
+# of 64 and 2 of 320), phi-3-vision-4.2b's 1088 (2 of 576) and whisper-base's
+# cross cache of 1500 frames (5 splits of 320, the last ragged).
+SERVED_SPLITS = [(576, 16, 64), (576, 128, 64), (1088, 128, 64), (1500, 32, 300)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t,ctas,bk", SERVED_SPLITS)
+def test_decode_plain_at_served_splits_matches_pallas(dtype, t, ctas, bk):
+    """The plain version cut into the splits the kernel takes at a served
+    shape (T kept, so each split keeps its count of 64-key tiles; widths
+    small) against the Pallas kernel in interpret mode, lengths 0, inside a
+    split and T."""
+    n, split_len = da.num_splits(t, ctas)
+    assert n > 1 and n <= da.MAX_CLUSTER and split_len % da.BLOCK_K == 0
+    jx, tx = _decode_inputs(6, dtype, 3, t, 4, 2, 32, [0, t // 2 + 5, t])
+    want = jax_decode(*jx, block_k=bk, interpret=True)
+    got = da.decode_attention_plain(*tx, splits=n)
+    _close(got, want, DTYPES[dtype][2])
+    assert float(got[0].abs().max()) == 0.0
+
+
+@hypothesis.settings(max_examples=200, deadline=None, database=None)
+@hypothesis.given(t=hypothesis.strategies.integers(1, 1 << 17),
+                  ctas=hypothesis.strategies.integers(1, 1 << 14))
+def test_num_splits_covers_the_cache_within_one_cluster(t, ctas):
+    """Any capacity and CTA count: the splits cover T with the last one
+    non-empty, each a whole number of 64-key tiles, at most one cluster's
+    worth, and the plain version's override cuts a count the same way. The
+    rule takes shapes only: ``lengths`` live on the device."""
+    n, split_len = da.num_splits(t, ctas)
+    assert split_len % da.BLOCK_K == 0 and split_len >= da.BLOCK_K
+    assert n * split_len >= t > (n - 1) * split_len
+    assert 1 <= n <= da.MAX_CLUSTER
+    assert da._cut(t, n) == (n, split_len)
+    assert list(inspect.signature(da.num_splits).parameters) == ["t", "ctas"]
+
+
+@pytest.mark.parametrize("layout", ["misaligned_k", "odd_stride_v", "misaligned_q"])
+def test_decode_layout_check_runs_before_any_build(layout, monkeypatch):
+    """The decode wrapper refuses, on CPU tensors and before anything is
+    built, a cache or query that TMA cannot read: an address off 16 bytes,
+    or a sequence stride (here 520 bytes) that is not a whole 16 bytes."""
+    from repro_torch.kernels import _build
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the wrapper reached the build")
+
+    monkeypatch.setattr(_build, "entry", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    q = torch.zeros(2, 1, 4, 64, dtype=torch.bfloat16)
+    k = v = torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16)
+    lengths = torch.full((2,), 16, dtype=torch.int32)
+    if layout == "misaligned_k":
+        k = torch.zeros(2 * 16 * 2 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 16, 2, 64)
+    elif layout == "odd_stride_v":
+        v = torch.zeros(2, 16, 260, dtype=torch.bfloat16)[..., :128].view(2, 16, 2, 64)
+    else:
+        q = torch.zeros(2 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 1, 4, 64)
+    with pytest.raises(ValueError, match="TMA"):
+        da.decode_attention_cuda(q, k, v, lengths)
+    da.check_tma_layout(torch.zeros(2, 1, 4, 64, dtype=torch.bfloat16),
+                        torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16),
+                        torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16))
+
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

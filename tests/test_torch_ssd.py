@@ -209,3 +209,41 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     arrays = [torch.from_numpy(a) for a in _chunk_inputs(12, 1, 1, 1, 8, 32, 16)]
     with pytest.raises(ValueError, match="CUDA"):
         ss.ssd_intra_chunk_cuda(*arrays)
+
+
+@pytest.mark.parametrize("layout", ["misaligned_xdt", "odd_stride_c", "misaligned_b"])
+def test_tma_layout_check_runs_before_any_build(layout, monkeypatch):
+    """With bf16 B/C the launcher refuses, on CPU tensors and before anything
+    is built, an input its tensor maps cannot describe: xdt one float off 16
+    bytes, or C rows of N 44 (88 bytes apart); ``tma_ready`` copies each
+    into one that meets the rule, with the same values, and leaves the
+    model's views (xdt permuted, B and C slices of one projection) as they
+    are."""
+    from repro_torch.kernels import _build
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the wrapper reached the build")
+
+    monkeypatch.setattr(_build, "entry", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    b, nc, q, h, p, n = 1, 2, 16, 3, 64, 44
+    xdt = torch.zeros(b, nc, q, h, p).permute(0, 1, 3, 2, 4)
+    cum = torch.zeros(b, nc, h, q)
+    proj = torch.randn(b, nc, q, 2 * n + 8).to(torch.bfloat16)
+    bm, cm = proj[..., 8:8 + n], proj[..., 8:8 + n].contiguous()
+    if layout == "misaligned_xdt":
+        xdt = torch.randn(b, nc, q, h, p + 1)[..., 1:].permute(0, 1, 3, 2, 4)
+    elif layout == "odd_stride_c":
+        cm = proj[..., :n].contiguous()
+    else:
+        bm = torch.zeros(b * nc * q * 48 + 1, dtype=torch.bfloat16)[1:].view(b, nc, q, 48)[..., :n]
+    with pytest.raises(ValueError, match="TMA"):
+        ss.ssd_intra_chunk_cuda(xdt, cum, bm, cm)
+    fixed = ss.tma_ready(xdt, bm, cm)
+    ss.check_tma_layout(*fixed)
+    for got, was in zip(fixed, (xdt, bm, cm)):
+        assert torch.equal(got, was)
+    model = (torch.zeros(b, nc, q, h, p).permute(0, 1, 3, 2, 4), proj[..., 8:8 + n],
+             proj[..., 8 + n - 4:8 + 2 * n - 4])
+    ss.check_tma_layout(*model)
+    assert all(a is c for a, c in zip(ss.tma_ready(*model), model))
