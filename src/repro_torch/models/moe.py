@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.distributed import constrain
 from repro_torch.distributed.sharding import einsum, gathered
 from repro_torch.models.layers import DATA, MODEL, ParamGroup, gather_sequence
+from repro_torch.tracing import span
 
 
 class MoE(ParamGroup):
@@ -110,41 +111,51 @@ def _expert_ffn(params: MoE, expert_in: torch.Tensor) -> torch.Tensor:
     return einsum("egcf,efd->egcd", F.silu(gate) * up, gathered(params.moe_wo))
 
 
-def _moe_gather_dispatch(params: MoE, xg: torch.Tensor, cfg, capacity: int):
+def _moe_gather_dispatch(params: MoE, xg: torch.Tensor, cfg, capacity: int, layer=None):
     """Gather/scatter dispatch: no (G,S,E,C) one-hot products. A kept
     assignment takes its (expert, position) slot; the rest go to an
     overflow slot C that is cut off (the reference's scatter with
-    ``mode="drop"`` writes there, and no kept slot is written twice)."""
+    ``mode="drop"`` writes there, and no kept slot is written twice).
+    Recorded as the einsum path's spans: routing and the slot tables
+    ``moe.route``, the gather ``moe.dispatch``, the pick and weighted sum
+    ``moe.combine``."""
     g, s, d = xg.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
-    logits = einsum("gsd,de->gse", xg, gathered(params.router))
-    topk_idx, gates, pos, keep, aux = route_topk_indices(logits, k, capacity)
+    with span("moe.route", layer=layer):
+        logits = einsum("gsd,de->gse", xg, gathered(params.router))
+        topk_idx, gates, pos, keep, aux = route_topk_indices(logits, k, capacity)
 
-    gi = torch.arange(g, device=xg.device)[:, None, None].expand(g, s, k)
-    si = torch.arange(s, device=xg.device)[None, :, None].expand(g, s, k)
-    pos_c = torch.where(keep, pos, capacity).long()
-    slot_token = torch.zeros((g, e, capacity + 1), dtype=torch.long, device=xg.device)
-    slot_fill = torch.zeros((g, e, capacity + 1), dtype=xg.dtype, device=xg.device)
-    slot_token[gi, topk_idx, pos_c] = si
-    slot_fill[gi, topk_idx, pos_c] = 1.0
-    slot_token, slot_fill = slot_token[..., :capacity], slot_fill[..., :capacity]
+        gi = torch.arange(g, device=xg.device)[:, None, None].expand(g, s, k)
+        si = torch.arange(s, device=xg.device)[None, :, None].expand(g, s, k)
+        pos_c = torch.where(keep, pos, capacity).long()
+        slot_token = torch.zeros((g, e, capacity + 1), dtype=torch.long, device=xg.device)
+        slot_fill = torch.zeros((g, e, capacity + 1), dtype=xg.dtype, device=xg.device)
+        slot_token[gi, topk_idx, pos_c] = si
+        slot_fill[gi, topk_idx, pos_c] = 1.0
+        slot_token, slot_fill = slot_token[..., :capacity], slot_fill[..., :capacity]
 
-    expert_in = xg[torch.arange(g, device=xg.device)[:, None, None], slot_token]  # (G,E,C,d)
-    expert_in = (expert_in * slot_fill[..., None]).transpose(0, 1)  # (E,G,C,d)
-    expert_in = constrain(expert_in, MODEL, DATA, None, None)
-    expert_out = constrain(_expert_ffn(params, expert_in), MODEL, DATA, None, None)
+    with span("moe.dispatch", layer=layer):
+        expert_in = xg[torch.arange(g, device=xg.device)[:, None, None], slot_token]  # (G,E,C,d)
+        expert_in = (expert_in * slot_fill[..., None]).transpose(0, 1)  # (E,G,C,d)
+        expert_in = constrain(expert_in, MODEL, DATA, None, None)
+    with span("moe.experts", layer=layer):
+        expert_out = constrain(_expert_ffn(params, expert_in), MODEL, DATA, None, None)
     expert_out = expert_out.transpose(0, 1)  # (G,E,C,d)
 
-    flat = expert_out.reshape(g, e * capacity, d)
-    slot_of_token = topk_idx * capacity + torch.clamp(pos, max=capacity - 1)
-    picked = flat[gi, slot_of_token]  # (G,S,k,d)
-    w = (gates * keep).to(xg.dtype)  # dropped slots contribute zero
-    return einsum("gsk,gskd->gsd", w, picked), aux
+    with span("moe.combine", layer=layer):
+        flat = expert_out.reshape(g, e * capacity, d)
+        slot_of_token = topk_idx * capacity + torch.clamp(pos, max=capacity - 1)
+        picked = flat[gi, slot_of_token]  # (G,S,k,d)
+        w = (gates * keep).to(xg.dtype)  # dropped slots contribute zero
+        return einsum("gsk,gskd->gsd", w, picked), aux
 
 
-def moe_block(params: MoE, x: torch.Tensor, cfg,
-              dispatch_mode: str = "einsum") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,d) -> (y (B,S,d), aux loss). Shared experts run densely."""
+def moe_block(params: MoE, x: torch.Tensor, cfg, dispatch_mode: str = "einsum",
+              layer=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,d) -> (y (B,S,d), aux loss). Shared experts run densely.
+    Under the profiler it records ``moe.route`` (the router product,
+    ``route_topk`` and the casts), ``moe.dispatch``, ``moe.experts``,
+    ``moe.combine`` and ``moe.shared`` spans, labelled with ``layer``."""
     x = gather_sequence(x)
     b, s, d = x.shape
     e = cfg.moe_experts
@@ -155,22 +166,27 @@ def moe_block(params: MoE, x: torch.Tensor, cfg,
     capacity = max(int(math.ceil(cfg.moe_top_k * group * cfg.moe_capacity_factor / e)), 1)
 
     if dispatch_mode == "gather":
-        yg, aux = _moe_gather_dispatch(params, xg, cfg, capacity)
+        yg, aux = _moe_gather_dispatch(params, xg, cfg, capacity, layer)
     else:  # the reference runs the einsum path for any mode but "gather"
-        logits = einsum("gsd,de->gse", xg, gathered(params.router))
-        dispatch, combine, aux = route_topk(logits, cfg.moe_top_k, capacity)
-        dispatch = constrain(dispatch.to(x.dtype), DATA, None, MODEL, None)
-        combine = constrain(combine.to(x.dtype), DATA, None, MODEL, None)
-        expert_in = constrain(einsum("gsec,gsd->egcd", dispatch, xg),
-                              MODEL, DATA, None, None)
-        expert_out = constrain(_expert_ffn(params, expert_in), MODEL, DATA, None, None)
+        with span("moe.route", layer=layer):
+            logits = einsum("gsd,de->gse", xg, gathered(params.router))
+            dispatch, combine, aux = route_topk(logits, cfg.moe_top_k, capacity)
+            dispatch = constrain(dispatch.to(x.dtype), DATA, None, MODEL, None)
+            combine = constrain(combine.to(x.dtype), DATA, None, MODEL, None)
+        with span("moe.dispatch", layer=layer):
+            expert_in = constrain(einsum("gsec,gsd->egcd", dispatch, xg),
+                                  MODEL, DATA, None, None)
+        with span("moe.experts", layer=layer):
+            expert_out = constrain(_expert_ffn(params, expert_in), MODEL, DATA, None, None)
         # The combine contracts the expert dim, which a DTensor (torch 2.11)
         # cannot flatten sharded: on a mesh the experts whole first.
-        yg = einsum("gsec,egcd->gsd", constrain(combine, DATA, None, None, None),
-                    constrain(expert_out, None, DATA, None, None))
+        with span("moe.combine", layer=layer):
+            yg = einsum("gsec,egcd->gsd", constrain(combine, DATA, None, None, None),
+                        constrain(expert_out, None, DATA, None, None))
     y = yg.reshape(b, s, d)
     if cfg.moe_shared > 0:
-        y = y + _swiglu(x, gathered(params.shared_wi), gathered(params.shared_wo))
+        with span("moe.shared", layer=layer):
+            y = y + _swiglu(x, gathered(params.shared_wi), gathered(params.shared_wo))
     # aux replicated: on a mesh it is a pending mean over the groups, which
     # DTensor (torch 2.11) cannot add to the loss's pending sum.
     return constrain(y, DATA, None, None), constrain(aux)

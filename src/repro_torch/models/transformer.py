@@ -41,6 +41,7 @@ from repro_torch.models.layers import (DATA, INIT_STD, MODEL, ParamGroup, attent
                                        sinusoidal_positions, split_heads, uses_kernels)
 from repro_torch.models.mamba2 import MambaBlock, mamba_block
 from repro_torch.models.moe import MoE, moe_block
+from repro_torch.tracing import span
 
 Cache = Dict[str, Any]
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -220,13 +221,15 @@ def _residual(x, h, run: RunConfig):
 
 
 def dense_block(lp: DenseBlock, x, cfg, run, positions, kv_cache=None,
-                cache_pos=None, causal=True, use_rope=True, enc_out=None):
+                cache_pos=None, causal=True, use_rope=True, enc_out=None, layer=None):
     """One pre-norm transformer block (+ cross-attention on ``enc_out``, the
-    encoder's output, non-causal and without rope, after norm3)."""
+    encoder's output, non-causal and without rope, after norm3); ``layer``,
+    its index, labels its ``attn`` and ``mlp`` spans."""
     kernel = uses_kernels(run)
-    h, kv = attention_block(lp.attn, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
-                            cfg, run, positions, kv_cache=kv_cache,
-                            cache_pos=cache_pos, causal=causal, use_rope=use_rope)
+    with span("attn", layer=layer):
+        h, kv = attention_block(lp.attn, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
+                                cfg, run, positions, kv_cache=kv_cache,
+                                cache_pos=cache_pos, causal=causal, use_rope=use_rope)
     x = _residual(x, h, run)
     if enc_out is not None:
         h, _ = attention_block(_cross_params(lp),
@@ -234,19 +237,22 @@ def dense_block(lp: DenseBlock, x, cfg, run, positions, kv_cache=None,
                                cfg, run, positions, kv_x=enc_out, causal=False,
                                use_rope=False)
         x = _residual(x, h, run)
-    h = mlp_block(lp.mlp, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg.act)
+    with span("mlp", layer=layer):
+        h = mlp_block(lp.mlp, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg.act)
     return _residual(x, h, run), kv
 
 
 def moe_layer_block(lp: MoELayer, x, cfg, run, positions, kv_cache=None,
-                    cache_pos=None):
-    """One pre-norm MoE layer: (x + attn + moe, kv, aux)."""
+                    cache_pos=None, layer=None):
+    """One pre-norm MoE layer: (x + attn + moe, kv, aux); ``layer``, its
+    index, labels its ``attn`` and ``moe.*`` spans."""
     kernel = uses_kernels(run)
-    h, kv = attention_block(lp.attn, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
-                            cfg, run, positions, kv_cache=kv_cache, cache_pos=cache_pos)
+    with span("attn", layer=layer):
+        h, kv = attention_block(lp.attn, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
+                                cfg, run, positions, kv_cache=kv_cache, cache_pos=cache_pos)
     x = _residual(x, h, run)
     h, aux = moe_block(lp.moe, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg,
-                       dispatch_mode=run.moe_dispatch)
+                       dispatch_mode=run.moe_dispatch, layer=layer)
     return _residual(x, h, run), kv, aux
 
 
@@ -285,15 +291,17 @@ def embed_tokens(params: Transformer, cfg, tokens: torch.Tensor) -> torch.Tensor
 
 
 def lm_logits(params: Transformer, cfg, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits over the padded vocabulary; padding columns are -1e30."""
-    head = params.embed.T if cfg.tie_embeddings else gathered(params.lm_head)
-    logits = constrain(gather_sequence(x).float() @ head.float(), DATA, None, MODEL)
-    if cfg.padded_vocab != cfg.vocab:  # mask vocabulary padding
-        if is_distributed(logits):  # a DTensor's sharded vocabulary cannot be sliced
-            cols = torch.arange(cfg.padded_vocab, device=logits.device)
-            return torch.where(cols < cfg.vocab, logits, -1e30)
-        logits[..., cfg.vocab:] = -1e30
-    return logits
+    """f32 logits over the padded vocabulary; padding columns are -1e30.
+    Recorded as the ``head`` span."""
+    with span("head"):
+        head = params.embed.T if cfg.tie_embeddings else gathered(params.lm_head)
+        logits = constrain(gather_sequence(x).float() @ head.float(), DATA, None, MODEL)
+        if cfg.padded_vocab != cfg.vocab:  # mask vocabulary padding
+            if is_distributed(logits):  # a DTensor's sharded vocabulary cannot be sliced
+                cols = torch.arange(cfg.padded_vocab, device=logits.device)
+                return torch.where(cols < cfg.vocab, logits, -1e30)
+            logits[..., cfg.vocab:] = -1e30
+        return logits
 
 
 # ---------------------------------------------------------------------------
@@ -465,22 +473,23 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,
     x, positions = _embed(params, cfg, run, tokens, frontend)
     kvs, states, dense_kvs = [], [], []
     if cfg.family in ("dense", "vlm"):
-        for lp in params.layers:
-            x, kv = dense_block(lp, x, cfg, run, positions)
+        for i, lp in enumerate(params.layers):
+            x, kv = dense_block(lp, x, cfg, run, positions, layer=i)
             kvs.append(kv)
     elif cfg.family == "audio":
         enc = extras["enc_out"] = _encode(params, cfg, run, frontend, x.dtype)
         x = _with_positions(cfg, x)
-        for lp in params.layers:
-            x, kv = dense_block(lp, x, cfg, run, positions, use_rope=False, enc_out=enc)
+        for i, lp in enumerate(params.layers):
+            x, kv = dense_block(lp, x, cfg, run, positions, use_rope=False, enc_out=enc,
+                                layer=i)
             kvs.append(kv)
     elif cfg.family == "moe":
-        for lp in params.dense_layers:
-            x, kv = dense_block(lp, x, cfg, run, positions)
+        for i, lp in enumerate(params.dense_layers):
+            x, kv = dense_block(lp, x, cfg, run, positions, layer=i)
             dense_kvs.append(kv)
         auxes = []
-        for lp in params.layers:
-            x, kv, aux = moe_layer_block(lp, x, cfg, run, positions)
+        for i, lp in enumerate(params.layers, start=len(params.dense_layers)):
+            x, kv, aux = moe_layer_block(lp, x, cfg, run, positions, layer=i)
             kvs.append(kv)
             auxes.append(aux)
         extras["aux"] = torch.stack(auxes).mean()
@@ -692,12 +701,13 @@ def _decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
             for i, lp in enumerate(params.dense_layers if moe else params.layers):
                 x, _ = dense_block(lp, x, cfg, run, positions,
                                    kv_cache=(cache[keys[0]][i], cache[keys[1]][i]),
-                                   cache_pos=pos)
+                                   cache_pos=pos, layer=i)
         if cfg.family == "moe":
+            first = len(params.dense_layers)
             for i, lp in enumerate(params.layers):
                 x, _, _ = moe_layer_block(lp, x, cfg, run, positions,
                                           kv_cache=(cache["k"][i], cache["v"][i]),
-                                          cache_pos=pos)
+                                          cache_pos=pos, layer=first + i)
     else:
         ssm_l, conv_l = _layer_states(cache)
 

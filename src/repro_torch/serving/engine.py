@@ -23,6 +23,7 @@ import torch
 from repro_torch import Device, resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.transformer import Cache, Transformer, decode_step, init_cache, prefill
+from repro_torch.tracing import span
 
 
 @dataclasses.dataclass
@@ -83,35 +84,46 @@ class ServeEngine:
         return sorted(results, key=lambda r: r.request_id)
 
     def _run_wave(self, wave, max_new_tokens, eos_id, frontend):
+        """One wave: prefill, then greedy decode. Under the profiler it
+        records a ``serve.wave`` span around ``serve.prefill``, each step's
+        ``serve.tokens`` (the argmax and the host's read of it) and each
+        ``serve.decode`` (step s gives token s + 1). Decode is host-paced,
+        so its spans take no timing events (``repro_torch.tracing``)."""
         b = len(wave)
         plen = max(len(p) for _, p in wave)
-        tokens = np.zeros((b, plen), np.int64)
-        for i, (_, p) in enumerate(wave):
-            tokens[i, plen - len(p):] = p  # left-pad
+        with span("serve.wave", requests=[rid for rid, _ in wave], batch=b, padded=plen,
+                  prompt_tokens=sum(len(p) for _, p in wave)):
+            with span("serve.prefill", batch=b, padded=plen):
+                tokens = np.zeros((b, plen), np.int64)
+                for i, (_, p) in enumerate(wave):
+                    tokens[i, plen - len(p):] = p  # left-pad
 
-        # The cache is sized for the whole generation budget up front (a
-        # vlm's frontend positions left out of it, as in the reference).
-        logits, cache = prefill(self.params, self.cfg, self.run,
-                                torch.from_numpy(tokens).to(self.device),
-                                max_len=plen + max_new_tokens, frontend=frontend)
-        cache = self._grow_cache(cache, plen + max_new_tokens, b)
+                # The cache is sized for the whole generation budget up front
+                # (a vlm's frontend positions left out of it, as in the
+                # reference).
+                logits, cache = prefill(self.params, self.cfg, self.run,
+                                        torch.from_numpy(tokens).to(self.device),
+                                        max_len=plen + max_new_tokens, frontend=frontend)
+            cache = self._grow_cache(cache, plen + max_new_tokens, b)
 
-        out_tokens = [[] for _ in range(b)]
-        done = [False] * b
-        cur = logits[:, -1].argmax(dim=-1)
-        for step in range(max_new_tokens):
-            for i, tok in enumerate(cur.tolist()):
-                if not done[i]:
-                    out_tokens[i].append(tok)
-                    if eos_id is not None and tok == eos_id:
-                        done[i] = True
-            # The reference also decodes after the last token and drops the
-            # result; skipping that step changes no token.
-            if all(done) or step == max_new_tokens - 1:
-                break
-            logits, cache = decode_step(self.params, self.cfg, self.run, cache,
-                                        cur[:, None])
-            cur = logits[:, -1].argmax(dim=-1)
+            out_tokens = [[] for _ in range(b)]
+            done = [False] * b
+            for step in range(max_new_tokens):
+                with span("serve.tokens", timed=False, step=step):
+                    cur = logits[:, -1].argmax(dim=-1)
+                    new = cur.tolist()
+                for i, tok in enumerate(new):
+                    if not done[i]:
+                        out_tokens[i].append(tok)
+                        if eos_id is not None and tok == eos_id:
+                            done[i] = True
+                # The reference also decodes after the last token and drops
+                # the result; skipping that step changes no token.
+                if all(done) or step == max_new_tokens - 1:
+                    break
+                with span("serve.decode", timed=False, step=step):
+                    logits, cache = decode_step(self.params, self.cfg, self.run, cache,
+                                                cur[:, None])
 
         return [GenerationResult(request_id=rid, prompt=list(p),
                                  tokens=out_tokens[i])
