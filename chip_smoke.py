@@ -37,7 +37,11 @@ the repository is not beside it). It
    seeded frame embeddings, phi-3-vision-4.2b with 8 requests of 512
    tokens and 64 new ones after 576 seeded patch embeddings, and yi-9b,
    qwen3-8b and starcoder2-15b with 8 requests of 512 tokens and 64 new.
-   For each it checks the exact kernel launches of that run, and, but for
+   For each it checks the exact kernel launches of that run and, where the
+   engine replayed its decode steps from a CUDA graph (whose launches are
+   counted from its capture: ``serving/engine.py``), the K3 launches of a
+   short wave against the K3 kernels of three profiler traces of it (the
+   most any trace holds); and, but for
    deepseek-moe-16b and starcoder2-15b, that a decode step's logits match
    prefill's on the same prefix, and (tinyllama, zamba2, whisper-base,
    phi-3-vision, yi-9b, qwen3-8b) that the kernel path matches the plain
@@ -383,6 +387,37 @@ def kernel_names(fn):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     return list(dict.fromkeys(n[:120] for n in names))
+
+
+def traced_launches(ops, fn, traces=3):
+    """(per counter of ``ops.LAUNCHES``, the most kernels of its symbols that
+    one of ``traces`` torch.profiler traces of a call of ``fn`` holds; the
+    counts each call added, which must not differ). A trace may lose a
+    kernel's record, never add one: traces of a whole serve wave lost one or
+    two K1 or K2 records of a few hundred on some models (on yi-9b, qwen3-8b
+    and starcoder2-15b in every trace when the wave captured a CUDA graph),
+    where traces of prefill alone or of replays alone held every launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    in_trace, counted = {}, []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # A fresh session may drop its first launches: another kernel first.
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            ops.reset_launches()
+            fn()
+            torch.cuda.synchronize()
+        counted.append(dict(ops.LAUNCHES))
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+        for counter, symbols in ops.KERNELS.items():
+            n = sum(any(s in name for s in symbols) for name in names)
+            in_trace[counter] = max(in_trace.get(counter, 0), n)
+    require(all(c == counted[0] for c in counted), "a traced call counts alike each time")
+    return in_trace, counted[0]
 
 
 def clocks():
@@ -832,6 +867,23 @@ def serve(port, device_name, phase):
     require(all(launches[k] > 0 for k, v in expect.items() if v),
             "every kernel of the path ran on the serve run")
     require(launches == expect, "kernel launches match the path's structure")
+    # A replayed decode step adds the counts its capture counted, where an
+    # eager one counts each launch as it runs. So where the engine replayed
+    # (it holds a graph), a short wave (prefill and two replays) runs under
+    # the profiler, three times: its counts must follow the path's structure,
+    # and K3's, which only the replays launch here, must be the K3 kernels
+    # the traces hold. K1's and K2's traced counts are printed beside: a
+    # trace loses a prefill K1 or K2 record now and then.
+    if engine._graph.graph is not None:
+        in_trace, wave_launches = traced_launches(
+            ops, lambda: engine.generate(prompts[:BATCH], max_new_tokens=3,
+                                         frontend=frontend))
+        one_wave = {k: per_prefill[k] + 2 * per_step[k] for k in per_prefill}
+        log(json.dumps({"model": arch, "traced_wave": wave_launches, "in_trace": in_trace,
+                        "expected": one_wave}))
+        require(wave_launches == one_wave and in_trace["flash_decode"] == one_wave["flash_decode"],
+                "a traced wave's launch counts follow the path's structure, and its K3 "
+                "kernels match them")
 
     # Per-phase times of one wave, on the same prompts.
     run = engine.run

@@ -51,6 +51,18 @@ LAUNCHES: Dict[str, int] = {"fused_rmsnorm": 0, "flash_attention": 0,
                             "flash_decode": 0, "ssd_chunk_dual": 0}
 
 
+# The CUDA symbols whose launches each wrapper counts, for holding
+# ``LAUNCHES`` to a profiler trace: one kernel a call (an f32 decode's
+# combine pass is counted with its split pass; the SSD step's kernel may run
+# more than once a call, where its wrapper cuts P or N into pieces).
+KERNELS: Dict[str, Tuple[str, ...]] = {
+    "fused_rmsnorm": ("rmsnorm_regs_kernel", "rmsnorm_loop_kernel"),
+    "flash_attention": ("flash_attention_bf16_kernel", "flash_attention_f32_kernel"),
+    "flash_decode": ("decode_cluster_kernel", "decode_split_kernel"),
+    "ssd_chunk_dual": ("ssd_bf16_kernel", "ssd_f32_kernel"),
+}
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0

@@ -13,7 +13,7 @@ returns its input when no mesh is set.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -248,7 +248,7 @@ def attention_block(
     run,
     positions: torch.Tensor,
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    cache_pos: Optional[int] = None,
+    cache_pos: Optional[Union[int, torch.Tensor]] = None,
     causal: bool = True,
     cache_fill: Optional[int] = None,
     kv_x: Optional[torch.Tensor] = None,
@@ -266,7 +266,10 @@ def attention_block(
       clamps it, so a position past the cache overwrites its last slot. The
       first ``cache_fill`` slots are attended when it is given (a ring
       buffer, whose live slots all lie in the window, so the window mask is
-      off), else the first ``cache_pos + S`` under ``cfg.window``.
+      off), else the first ``cache_pos + S`` under ``cfg.window``. A
+      ``cache_pos`` that is a 0-d int64 tensor on the cache's device is
+      written and attended alike, by ``index_copy_`` and lengths computed
+      on the device (no ``cache_fill``, no sharded cache).
     * ``kv_x`` (B,F,d) selects cross-attention: K/V are projected from it,
       with no rope, and S need not equal F.
     """
@@ -289,11 +292,18 @@ def attention_block(
 
     if kv_cache is not None:
         k_cache, v_cache = kv_cache
-        slot = max(0, min(cache_pos, k_cache.shape[1] - s))
-        write_positions(k_cache, slot, kk)
-        write_positions(v_cache, slot, vv)
-        fill = cache_fill if cache_fill is not None else cache_pos + s
-        lengths = torch.full((b,), fill, dtype=torch.int32, device=x.device)
+        if torch.is_tensor(cache_pos):  # on the device: nothing read on the host
+            at = (torch.clamp(cache_pos, 0, k_cache.shape[1] - s)
+                  + torch.arange(s, device=cache_pos.device))
+            k_cache.index_copy_(1, at, kk.to(k_cache.dtype))
+            v_cache.index_copy_(1, at, vv.to(v_cache.dtype))
+            lengths = (cache_pos + s).to(torch.int32).repeat(b)
+        else:
+            slot = max(0, min(cache_pos, k_cache.shape[1] - s))
+            write_positions(k_cache, slot, kk)
+            write_positions(v_cache, slot, vv)
+            fill = cache_fill if cache_fill is not None else cache_pos + s
+            lengths = torch.full((b,), fill, dtype=torch.int32, device=x.device)
         win = 0 if cache_fill is not None else cfg.window
         if kernel:
             out = ops.flash_decode(q, k_cache, v_cache, lengths, window=win,

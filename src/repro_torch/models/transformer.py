@@ -648,6 +648,13 @@ def _audio_decode_layer(lp: DenseBlock, x, cfg, run, positions, kv_cache, pos,
     return x + mlp_block(lp.mlp, rms_norm(x, lp.norm2, cfg.norm_eps, kernel=kernel), cfg.act)
 
 
+def position_on_device(cfg: ModelConfig, like: torch.Tensor) -> bool:
+    """Whether ``decode_step`` takes ``cache["pos"]`` as a 0-d tensor on the
+    device for ``cfg`` on tensors like ``like`` (its parameters or its
+    cache): a dense or moe step, not on a mesh."""
+    return cfg.family in ("dense", "moe") and not is_distributed(like)
+
+
 def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
                 cache: Cache, tokens: torch.Tensor):
     """One decode step: tokens (B,1) + cache -> (logits (B,1,V), new cache).
@@ -663,10 +670,16 @@ def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
     a cache of T slots goes to slot ``min(pos, T - 1)`` and the step attends
     ``pos + 1`` positions, so all T.
 
-    ``pos`` is a Python int, so a step's graph holds for one position (the
-    reference's traced ``pos`` gives one graph for every position); at
-    ``pos = T - 1`` the step attends all T slots, the reference's work,
-    which is where the dry run traces it. On a mesh (a mesh context set and
+    ``pos`` is a Python int, for which a step's graph holds for one
+    position; at ``pos = T - 1`` the step attends all T slots, the
+    reference's work, which is where the dry run traces it. A dense or moe
+    step on a plain (not mesh) cache also takes ``pos`` as a 0-d int64
+    tensor on the cache's device, as the reference traces it: the rope
+    positions, the K/V write (clamped alike) and the attended lengths are
+    then computed on the device, nothing is read on the host, and one
+    captured graph of the step serves every position. A full cache is not
+    checked there (that would read ``pos``); the returned cache's ``pos``
+    is a new tensor, ``pos + 1``. On a mesh (a mesh context set and
     the parameters DTensors) the tokens are distributed by
     ``batch_shardings``, the step runs under ``implicit_replication`` and
     the cache is a mesh cache (``init_cache``'s or ``prefill``'s on the
@@ -680,11 +693,15 @@ def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
 def _decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
                  cache: Cache, tokens: torch.Tensor):
     pos = cache["pos"]
+    on_device = torch.is_tensor(pos)
+    if on_device and not position_on_device(cfg, params.embed):
+        raise ValueError(f"a position on the device is taken by a dense or moe step on a "
+                         f"plain cache, not by a {cfg.family} step or a mesh cache")
     b = tokens.shape[0]
     x = embed_tokens(params, cfg, tokens)
-    positions = torch.full((b, 1), pos, device=x.device)
+    positions = pos.expand(b, 1) if on_device else torch.full((b, 1), pos, device=x.device)
     if cfg.family in ("dense", "vlm", "moe", "audio"):
-        if pos >= cache["k"].shape[2] and cfg.family != "vlm":
+        if not on_device and pos >= cache["k"].shape[2] and cfg.family != "vlm":
             raise ValueError(f"KV cache of {cache['k'].shape[2]} positions is full")
         if cfg.family == "audio":
             x = _with_positions(cfg, x, start=pos)

@@ -7,22 +7,29 @@ and the next wave takes the freed slots. The semantics are those of
 ``repro.serving.engine.ServeEngine``, for every family (the audio and vlm
 ones take their frame or patch embeddings as ``frontend``); the default
 run config routes the model through the kernel-backed ops
-(``attention_impl="flash"``). Beside decoding, the engine
-serves kernel-analysis requests through a co-resident ``AnalysisService``
+(``attention_impl="flash"``). A wave on a CUDA device whose model step
+takes its position on the device (``transformer.position_on_device``: a
+dense or moe model, not on a mesh) decodes by replays of one CUDA graph of
+the model's step (``DecodeGraph``); every other wave decodes eagerly.
+Either way each step goes through this module's ``decode_step``, once,
+which a caller may wrap to see every step's logits. Beside decoding, the
+engine serves kernel-analysis requests through a co-resident ``AnalysisService``
 on its own device (``analysis``, ``analyze_asm``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import Device, resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.transformer import Cache, Transformer, decode_step, init_cache, prefill
+from repro_torch.kernels import ops
+from repro_torch.models import transformer
+from repro_torch.models.transformer import Cache, Transformer, init_cache, prefill
 from repro_torch.tracing import span
 
 
@@ -31,6 +38,100 @@ class GenerationResult:
     request_id: int
     prompt: List[int]
     tokens: List[int]
+
+
+class DecodeGraph:
+    """One CUDA graph of ``transformer.decode_step``, replayed for every
+    decode step of a wave.
+
+    The captured step reads its tokens from a static (B, 1) buffer and its
+    position from the cache's ``pos``, a 0-d int64 tensor on the device
+    (``start``), which the graph advances; so one capture serves every step
+    of a wave, and every later wave whose cache tensors come back at the
+    same addresses, shapes, strides and dtypes, at the same batch. Anything
+    else is captured anew. The holder keeps the cache's addresses and
+    layouts, never its tensors, so a wave's cache is freed with the wave.
+
+    Captures run on a side stream into one memory pool
+    (``torch.cuda.graph_pool_handle``), which every capture reuses. The old
+    graph's outputs are dropped before a capture, so that it reuses their
+    blocks, and the old graph itself once the capture has ended: a pool
+    that no graph holds any more cannot be captured into again, and a graph
+    cannot be destroyed while a capture is under way. Captures do not go
+    through ``torch.cuda.graph``, which synchronizes and empties the
+    allocator's cache on entry, so that the next prefill would allocate its
+    blocks from the device again. A capture runs nothing, so the step that
+    captured is replayed once, as every other. Replays add the captured
+    step's kernel launches to ``ops.LAUNCHES``. A replay's logits live in a
+    buffer that the next replay overwrites: a caller that keeps them copies
+    them before the next step.
+    """
+
+    def __init__(self):
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.key: Optional[tuple] = None
+        self.pool: Optional[tuple] = None
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.tokens: Optional[torch.Tensor] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.pos: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}
+        self.captured = False  # whether the last step captured its graph
+
+    def start(self, cache: Cache) -> Cache:
+        """``cache`` with its int position moved into the holder's device
+        position."""
+        if self.pos is None:
+            self.pos = torch.zeros((), dtype=torch.int64, device=cache["k"].device)
+        self.pos.fill_(cache["pos"])
+        return dict(cache, pos=self.pos)
+
+    def step(self, params: Transformer, cfg: ModelConfig, run: RunConfig, cache: Cache,
+             tokens: torch.Tensor):
+        """``transformer.decode_step(params, cfg, run, cache, tokens)`` as a
+        replay, captured first where ``cache`` or the batch differ from the
+        captured ones; the cache is updated in place, ``pos`` included."""
+        key = (tokens.shape, *((name, t.data_ptr(), t.shape, t.stride(), t.dtype)
+                               for name, t in sorted(cache.items()) if torch.is_tensor(t)))
+        self.captured = key != self.key
+        if self.captured:
+            self._capture(params, cfg, run, cache, tokens, key)
+        self.tokens.copy_(tokens)
+        self.graph.replay()
+        for name, n in self.launches.items():
+            ops.LAUNCHES[name] += n
+        return self.logits, cache
+
+    def _capture(self, params, cfg, run, cache, tokens, key) -> None:
+        self.key = self.logits = None  # the old outputs' blocks free for the new graph
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(tokens.device)
+        self.tokens = torch.empty_like(tokens)
+        before = dict(ops.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool)
+            try:
+                logits, after = transformer.decode_step(params, cfg, run, cache, self.tokens)
+                cache["pos"].copy_(after["pos"])
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(self.stream)
+        self.launches = {name: ops.LAUNCHES[name] - n for name, n in before.items()}
+        ops.LAUNCHES.update(before)  # the capture launched nothing
+        self.graph, self.key, self.logits = graph, key, logits
+
+
+def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig, cache: Cache,
+                tokens: torch.Tensor, graph: Optional[DecodeGraph] = None):
+    """The engine's decode step: ``transformer.decode_step``, or a replay of
+    ``graph`` where one is given (then ``cache`` is one ``graph.start``
+    gave). Returns (logits (B,1,V), cache)."""
+    if graph is not None:
+        return graph.step(params, cfg, run, cache, tokens)
+    return transformer.decode_step(params, cfg, run, cache, tokens)
 
 
 class ServeEngine:
@@ -49,6 +150,7 @@ class ServeEngine:
         self.batch_size = batch_size
         self.max_len = max_len
         self._analysis = None
+        self._graph = DecodeGraph()
 
     @property
     def analysis(self):
@@ -87,10 +189,15 @@ class ServeEngine:
         """One wave: prefill, then greedy decode. Under the profiler it
         records a ``serve.wave`` span around ``serve.prefill``, each step's
         ``serve.tokens`` (the argmax and the host's read of it) and each
-        ``serve.decode`` (step s gives token s + 1). Decode is host-paced,
-        so its spans take no timing events (``repro_torch.tracing``)."""
+        ``serve.decode`` (step s gives token s + 1). Decode's spans take no
+        timing events (``repro_torch.tracing``): a captured step must not
+        record any, and an eager one is host-paced. Each ``serve.decode``
+        span's ``graph`` field reads ``"replay"`` or ``"eager"``, and
+        ``captured`` whether that step captured the graph it replays."""
         b = len(wave)
         plen = max(len(p) for _, p in wave)
+        graph = (self._graph if self.device.type == "cuda"
+                 and transformer.position_on_device(self.cfg, self.params.embed) else None)
         with span("serve.wave", requests=[rid for rid, _ in wave], batch=b, padded=plen,
                   prompt_tokens=sum(len(p) for _, p in wave)):
             with span("serve.prefill", batch=b, padded=plen):
@@ -105,6 +212,8 @@ class ServeEngine:
                                         torch.from_numpy(tokens).to(self.device),
                                         max_len=plen + max_new_tokens, frontend=frontend)
             cache = self._grow_cache(cache, plen + max_new_tokens, b)
+            if graph is not None:
+                cache = graph.start(cache)
 
             out_tokens = [[] for _ in range(b)]
             done = [False] * b
@@ -121,9 +230,12 @@ class ServeEngine:
                 # the result; skipping that step changes no token.
                 if all(done) or step == max_new_tokens - 1:
                     break
-                with span("serve.decode", timed=False, step=step):
+                with span("serve.decode", timed=False, step=step) as decode:
                     logits, cache = decode_step(self.params, self.cfg, self.run, cache,
-                                                cur[:, None])
+                                                cur[:, None], graph=graph)
+                if decode is not None:
+                    decode.fields.update(graph="eager" if graph is None else "replay",
+                                         captured=graph is not None and graph.captured)
 
         return [GenerationResult(request_id=rid, prompt=list(p),
                                  tokens=out_tokens[i])

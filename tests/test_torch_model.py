@@ -92,8 +92,12 @@ def test_forward_hidden_matches_reference(setup, impl):
     _close(got.float(), jnp.asarray(want, jnp.float32), TOL[dtype])
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_prefill_and_decode_match_reference(setup, impl):
+@pytest.mark.parametrize("impl,pos", [(impl, "int") for impl in IMPLS]
+                         + [(impl, "tensor") for impl in IMPLS],
+                         ids=list(IMPLS) + [f"{impl}-device-pos" for impl in IMPLS])
+def test_prefill_and_decode_match_reference(setup, impl, pos):
+    """Prefill, then one decode step whose position is the int prefill
+    gives or that int as a 0-d tensor (the engine's replayed step)."""
     dtype, jcfg, cfg, params, _, model, tokens = setup
     want_pre, jcache = jax_prefill(params, jcfg, JAX_RUN, jnp.asarray(tokens[:, :-1]))
     jcache = JaxEngine(jcfg, params, run=JAX_RUN)._grow_cache(jcache, S + 3, B)
@@ -103,11 +107,13 @@ def test_prefill_and_decode_match_reference(setup, impl):
                                  max_len=S + 3)
         assert cache["k"].shape == (cfg.n_layers, B, S + 3, cfg.n_kv_heads, cfg.d_head)
         _close(cache["k"][:, :, :S - 1].float(), jcache["k"][:, :, :S - 1], TOL[dtype])
+        if pos == "tensor":
+            cache["pos"] = torch.tensor(cache["pos"])
         got_dec, cache2 = decode_step(model, cfg, _run(impl), cache,
                                       torch.from_numpy(tokens[:, -1:]))
     _close(got_pre, want_pre, TOL[dtype])
     _close(got_dec, want_dec, TOL[dtype])
-    assert cache2["pos"] == S and got_dec.dtype == torch.float32
+    assert int(cache2["pos"]) == S and got_dec.dtype == torch.float32
 
 
 @pytest.mark.parametrize("impl", IMPLS)

@@ -243,10 +243,14 @@ def test_forward_hidden_matches_reference(setup, impl, dispatch):
     _close(float(extras["aux"]), float(jextras["aux"]), 1e-6)
 
 
-@pytest.mark.parametrize("impl", ["flash", "chunked"])
-def test_prefill_and_decode_match_reference(setup, impl):
+@pytest.mark.parametrize("impl,pos", [("flash", "int"), ("chunked", "int"),
+                                      ("flash", "tensor"), ("chunked", "tensor")],
+                         ids=["flash", "chunked", "flash-device-pos", "chunked-device-pos"])
+def test_prefill_and_decode_match_reference(setup, impl, pos):
     """Prefill on all but the last token, then one decode step on it, whose
-    4 tokens route as one group of capacity 1 in both packages."""
+    4 tokens route as one group of capacity 1 in both packages; the step's
+    position is the int prefill gives or that int as a 0-d tensor (the
+    engine's replayed step)."""
     jcfg, cfg, params, _, model, tokens = setup
     want_pre, jcache = jax_prefill(params, jcfg, JAX_RUN, jnp.asarray(tokens[:, :-1]))
     jcache = JaxEngine(jcfg, params, run=JAX_RUN)._grow_cache(jcache, S + 3, B)
@@ -258,10 +262,12 @@ def test_prefill_and_decode_match_reference(setup, impl):
         assert cache["dk"].shape == (cfg.moe_first_dense, B, S + 3, cfg.n_kv_heads, cfg.d_head)
         for key in ("k", "v", "dk", "dv"):
             _close(_np(cache[key][:, :, :S - 1]), jcache[key][:, :, :S - 1])
+        if pos == "tensor":
+            cache["pos"] = torch.tensor(cache["pos"])
         dec, cache = decode_step(model, cfg, run, cache, torch.from_numpy(tokens[:, -1:]))
     _close(_np(pre), want_pre)
     _close(_np(dec), want_dec)
-    assert cache["pos"] == S
+    assert int(cache["pos"]) == S
 
 
 def test_init_cache_shapes(setup):

@@ -72,6 +72,8 @@ def test_a_wave_gives_its_engine_spans(recorder):
     (pre,) = by["serve.prefill"]
     assert pre.fields == {"batch": 4, "padded": 11} and pre.parent == wave.id
     assert [s.fields["step"] for s in by["serve.decode"]] == list(range(NEW - 1))
+    assert all(s.fields["graph"] == "eager" and s.fields["captured"] is False
+               for s in by["serve.decode"])  # no graph on the CPU
     assert [s.fields["step"] for s in by["serve.tokens"]] == list(range(NEW))
     for s in by["serve.decode"] + by["serve.tokens"]:
         assert s.parent == wave.id
