@@ -2,15 +2,19 @@
 (flash decode) and K4 (SSD) sources beside the sources as they are, on one
 CUDA device:
 
-    python3 benchmarks/torch_kernel_variants.py [--parent DIR] [--host] [--only PREFIX ...]
+    python3 benchmarks/torch_kernel_variants.py [--parent DIR] [--host]
+        [--only PREFIX ... | --names NAME ...]
 
 ``--only`` keeps the variants whose names start with one of the prefixes
-(``fa`` for K2's, ``da`` for K3's, ``rms``, ``ssd``). ``--parent DIR`` adds
-``da_parent`` and ``ssd_parent``: K3's and K4's sources (and headers) of an
-earlier commit, unpacked into DIR, e.g. ``git archive COMMIT
-src/repro_torch/kernels/csrc | tar -x -C build/parent`` and then
-``--parent build/parent/src/repro_torch/kernels/csrc``; both take the same C
-entry points, K3's with a scratch at bf16 too.
+(``fa`` for K2's, ``da`` for K3's, ``rms``, ``ssd``); ``--names`` keeps the
+variants of those names alone (``fa``, ``fa_parent``). ``--parent DIR`` adds
+``fa_parent``, ``da_parent`` and ``ssd_parent``: K2's, K3's and K4's sources
+(and headers) of an earlier commit, unpacked into DIR, e.g. ``git archive
+COMMIT src/repro_torch/kernels/csrc | tar -x -C build/parent`` and then
+``--parent build/parent/src/repro_torch/kernels/csrc``; they take the same C
+entry points (a K3 from before its clustered launch, with a scratch at bf16
+too, through ``parent_decode``). A parent variant skips the head dims its
+source does not take (D 224 before the Zamba2-7B rows).
 
 Each variant is a source of ``src/repro_torch/kernels/csrc`` with text
 replacements (and, as a third item, constants of the kernel's Python module
@@ -94,14 +98,17 @@ VARIANTS = {
     "fa": ("flash_attention", []),
     # Two consumer warpgroups (128 queries) a CTA and one CTA an SM at every
     # head dim, D 32 and 64 too.
-    "fa_2wg": ("flash_attention", [("static constexpr int CONSUMERS = D <= 64 ? 1 : 2;",
-                                    "static constexpr int CONSUMERS = 2;"),
+    "fa_2wg": ("flash_attention", [("static constexpr int CONSUMERS = D <= 64 || WIDE ? 1 : 2;",
+                                    "static constexpr int CONSUMERS = WIDE ? 1 : 2;"),
                                    ("static constexpr int CTAS = D <= 64 ? 2 : 1;",
                                     "static constexpr int CTAS = 1;")]),
     "fa_2stages": ("flash_attention", [("constexpr int kStages = 4; ", "constexpr int kStages = 2; ")]),
-    # Tiles of 128 keys (two stages, to fit D 128's shared memory).
+    # Tiles of 128 keys (two stages, to fit D 128's shared memory; one above
+    # it).
     "fa_bk128": ("flash_attention", [("constexpr int kBK = 64; ", "constexpr int kBK = 128;"),
-                                     ("constexpr int kStages = 4; ", "constexpr int kStages = 2; ")]),
+                                     ("constexpr int kStages = 4; ", "constexpr int kStages = 2; "),
+                                     ("STAGES = D <= 128 ? kStages : 3;",
+                                      "STAGES = D <= 128 ? kStages : 1;")]),
 }
 # K4 with one part dropped, timed but not checked (their output is wrong by
 # design): what each part adds to the kernel's time.
@@ -128,14 +135,17 @@ ABLATIONS = {
                                       "      if (ib < 0)\n        *reinterpret_cast<float2*>(yb")]),
 }
 VARIANTS.update(ABLATIONS)
-SSD_SHAPES = ((4, 2, 80, 256, 64, 64), (4, 2, 24, 256, 64, 128))  # zamba2, mamba2-130m
+# zamba2, mamba2-130m; zamba2-7b's call a group (56 of its 112 heads, 4 chunks).
+SSD_SHAPES = ((4, 2, 80, 256, 64, 64), (4, 2, 24, 256, 64, 128), (4, 4, 56, 256, 64, 64))
 # (b, s, t, h, kv, d, causal): chip_smoke.py's K2 timing shapes.
 FA_SHAPES = ((4, 512, 512, 32, 4, 64, True), (4, 512, 512, 32, 32, 80, True),
              (4, 512, 512, 16, 16, 128, True), (4, 512, 512, 32, 8, 128, True),
              (4, 512, 512, 32, 4, 128, True), (4, 512, 512, 48, 4, 128, True),
              (4, 1088, 1088, 32, 32, 96, True), (4, 1500, 1500, 8, 8, 64, False),
              (4, 64, 1500, 8, 8, 64, False), (4, 64, 64, 8, 8, 64, True),
-             (4, 448, 448, 8, 8, 64, True), (4, 448, 1500, 8, 8, 64, False))
+             (4, 448, 448, 8, 8, 64, True), (4, 448, 1500, 8, 8, 64, False),
+             (4, 1024, 1024, 32, 32, 224, True))  # zamba2-7b's shared attention
+WIDE_SCALE = {224: (224 / 2) ** -0.5}  # the model's own softmax scale at D 224
 # (b, t, h, kv, d, length): chip_smoke.py's K3 timing shapes (the
 # mid-generation cache of each served shape; whisper-base's cross cache
 # whole, phi-3-vision's at a length past its T).
@@ -146,9 +156,12 @@ DA_SHAPES = ((4, _T, 32, 4, 64, _MID), (4, _T, 32, 32, 80, _MID), (4, _T, 16, 16
              (4, chip_smoke.WHISPER_FRAMES, 8, 8, 64, chip_smoke.WHISPER_FRAMES),
              (4, chip_smoke.WHISPER_T, 8, 8, 64,
               chip_smoke.WHISPER_T - chip_smoke.WHISPER_NEW // 2),
-             (4, chip_smoke.PHI_SEQ, 32, 32, 96, chip_smoke.PHI_SEQ + chip_smoke.NEW_TOKENS // 2))
+             (4, chip_smoke.PHI_SEQ, 32, 32, 96, chip_smoke.PHI_SEQ + chip_smoke.NEW_TOKENS // 2),
+             # zamba2-7b's cache mid-answer, at batch 4 and at the cell's 64
+             (4, 1280, 32, 32, 224, 1152), (64, 1280, 32, 32, 224, 1152))
 # Sources of an earlier commit: variant -> base (``--parent``).
-PARENT_VARIANTS = {"da_parent": "decode_attention", "ssd_parent": "ssd_scan"}
+PARENT_VARIANTS = {"fa_parent": "flash_attention", "da_parent": "decode_attention",
+                   "ssd_parent": "ssd_scan"}
 RMS_SHAPES = ((2048, 2048), (4, 2048), (2048, 2560), (4, 5120), (2048, 5120), (2048, 768),
               (2048, 1536))
 
@@ -233,10 +246,15 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     only = sys.argv[sys.argv.index("--only") + 1:] if "--only" in sys.argv else []
+    if "--names" in sys.argv:  # these variants and no other
+        keep = sys.argv[sys.argv.index("--names") + 1:]
+        only = [n for n in keep if n in VARIANTS or n in PARENT_VARIANTS]
     parent = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     if parent is not None:
         VARIANTS.update({name: (base, []) for name, base in PARENT_VARIANTS.items()})
-    for name in [n for n in VARIANTS if only and not n.startswith(tuple(only))]:
+    exact = "--names" in sys.argv
+    for name in [n for n in VARIANTS if only and not (n in only if exact
+                                                      else n.startswith(tuple(only)))]:
         del VARIANTS[name]
     built = build_all(parent)
     for name, (_, regs) in built.items():
@@ -268,6 +286,13 @@ def main() -> int:
         print(json.dumps({"ok": True}))
         return 0
     defaults = {k: getattr(da, k) for v in VARIANTS.values() if len(v) > 2 for k in v[2]}
+    # A parent whose K3 is the clustered launch takes the present wrapper.
+    old_decode = parent is not None and "decode_cluster_kernel" not in open(
+        os.path.join(parent, "decode_attention.cu")).read()
+
+    def takes(name, d):
+        """Whether variant ``name``'s source takes head dim ``d``."""
+        return d != 224 or name not in PARENT_VARIANTS
     for rnd in range(2):
         for name in names if rnd == 0 else names[::-1]:
             base = VARIANTS[name][0]
@@ -277,6 +302,7 @@ def main() -> int:
             if base == "ssd_scan":
                 for (b, nc, h, q, p, n), dtype in [(sh, dt) for dt in (torch.bfloat16, torch.float32)
                                                    for sh in SSD_SHAPES]:
+                    plain_ms = None
                     xdt = torch.randn(b, nc, q, h, p, generator=gen, device="cuda") * 0.1
                     cum = -torch.cumsum(torch.rand(b, nc, q, h, generator=gen, device="cuda"), 2)
                     proj = torch.randn(b, nc, q, 2 * n + 8, generator=gen, device="cuda") * 0.3
@@ -291,47 +317,62 @@ def main() -> int:
                                                      tol=chip_smoke.SSD_TOL)["max_abs_err"]
                                   for g, w in zip(got, want))
                     ms = chip_smoke.time_ms(lambda: ssd.ssd_intra_chunk_cuda(*args))[0]
+                    if name == "ssd" and rnd == 0 and h == 56:
+                        plain_ms = chip_smoke.time_ms(lambda: ssd.ssd_intra_chunk_plain(*args),
+                                                      reps=3)[0]
                     print(json.dumps({"variant": name, "round": rnd, "shape": shape,
-                                      "ms": ms, "max_abs_err": err}), flush=True)
+                                      "ms": ms, "max_abs_err": err, "plain_ms": plain_ms}),
+                          flush=True)
             elif base == "decode_attention":
-                call = parent_decode if name == "da_parent" else da.decode_attention_cuda
-                for b, t, h, kv, d, length in DA_SHAPES:
+                call = (parent_decode if name == "da_parent" and old_decode
+                        else da.decode_attention_cuda)
+                for b, t, h, kv, d, length in [sh for sh in DA_SHAPES if takes(name, sh[4])]:
                     q = torch.randn(b, 1, h, d, generator=gen, device="cuda").bfloat16()
                     k, v = (torch.randn(b, t, kv, d, generator=gen, device="cuda").bfloat16()
                             for _ in range(2))
                     lengths = torch.full((b,), length, dtype=torch.int32, device="cuda")
-                    run = lambda: call(q, k, v, lengths)  # noqa: E731
+                    kw = {"scale": WIDE_SCALE[d]} if d in WIDE_SCALE else {}
+                    run = lambda: call(q, k, v, lengths, **kw)  # noqa: E731
                     err = chip_smoke.compare(name, [b, t, h, kv, d, length], run(),
-                                             da.decode_attention_plain(q, k, v, lengths),
+                                             da.decode_attention_plain(q, k, v, lengths, **kw),
                                              )["max_abs_err"]
                     row = {"variant": name, "round": rnd, "shape": [b, t, h, kv, d, length],
                            "max_abs_err": err, "ms": chip_smoke.time_ms(run)[0],
                            "host_us": chip_smoke.host_us(run)}
+                    if name == "da" and rnd == 0 and d in WIDE_SCALE:
+                        row["plain_ms"] = chip_smoke.time_ms(
+                            lambda: da.decode_attention_plain(q, k, v, lengths, **kw))[0]
                     if name == "da" and rnd == 0:
                         nv = min(length, t)
                         qt, kt, vt = (x.transpose(1, 2) for x in (q, k[:, :nv], v[:, :nv]))
                         lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                            qt, kt, vt, enable_gqa=True)
+                            qt, kt, vt, enable_gqa=True, **kw)
                         row.update(library_ms=chip_smoke.time_ms(lib)[0],
                                    library_kernels=chip_smoke.kernel_names(lib))
                     print(json.dumps(row), flush=True)
             elif base == "flash_attention":
-                for b, s, t, h, kv, d, causal in FA_SHAPES:
+                for b, s, t, h, kv, d, causal in [sh for sh in FA_SHAPES if takes(name, sh[5])]:
                     q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
                     k, v = (torch.randn(b, t, kv, d, generator=gen, device="cuda").bfloat16()
                             for _ in range(2))
+                    kw = {"scale": WIDE_SCALE[d]} if d in WIDE_SCALE else {}
                     err = chip_smoke.compare(name, [b, s, t, h, kv, d, causal],
-                                             fa.flash_attention_cuda(q, k, v, causal=causal),
-                                             fa.flash_attention_plain(q, k, v, causal=causal),
+                                             fa.flash_attention_cuda(q, k, v, causal=causal, **kw),
+                                             fa.flash_attention_plain(q, k, v, causal=causal,
+                                                                      **kw),
                                              )["max_abs_err"]
                     row = {"variant": name, "round": rnd, "shape": [b, s, t, h, kv, d, causal],
                            "max_abs_err": err,
                            "ms": chip_smoke.time_ms(
-                               lambda: fa.flash_attention_cuda(q, k, v, causal=causal))[0]}
+                               lambda: fa.flash_attention_cuda(q, k, v, causal=causal, **kw))[0]}
+                    if name == "fa" and rnd == 0 and d in WIDE_SCALE:
+                        row["plain_ms"] = chip_smoke.time_ms(
+                            lambda: fa.flash_attention_plain(q, k, v, causal=causal, **kw),
+                            reps=3)[0]
                     if name == "fa" and rnd == 0:
                         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
                         lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                            qt, kt, vt, is_causal=causal, enable_gqa=True)
+                            qt, kt, vt, is_causal=causal, enable_gqa=True, **kw)
                         row.update(library_ms=chip_smoke.time_ms(lib)[0],
                                    library_kernels=chip_smoke.kernel_names(lib))
                     print(json.dumps(row), flush=True)

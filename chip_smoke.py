@@ -985,6 +985,120 @@ def serve(port, device_name, phase):
     return summary, launches
 
 
+# Zamba2-7B at its published widths (perfbench/configs/zamba2-7b.json: 81
+# Mamba-2 layers of 2 B/C groups, 2 shared blocks of 32 heads of 224 before
+# 13 of them), served as the benchmark serves it (perfbench's serve_waves
+# cell on a small mix): waves of 8 prompts (lognormal median 200, up to
+# 512) and 32 new tokens. A wave launches per prefill K1 at each Mamba
+# layer's two norms (its input and the gated norm), each invocation's two
+# and the final norm; K2 at each invocation; K4 at each layer and group;
+# per decode step K1 alike and K3 at each invocation.
+ZAMBA2 = dict(config="perfbench/configs/zamba2-7b.json", seed=2 ** 31 + 2901,
+              mix={"driver": "serve_waves", "batch_size": 8, "prompt_median": 200,
+                   "prompt_sigma": 0.6, "prompt_min": 32, "prompt_max": 512, "new_tokens": 32,
+                   "eos_id": None, "sample_waves": 1, "sample_from": 1})
+# (b, s, t, h, kv, causal) for K2 and (b, t, h, kv, length) for K3 at D 224,
+# ragged and not, with the model's scale (224 / 2) ** -0.5 and the default.
+WIDE_ATTENTION = ((2, 300, 300, 32, 32, True), (2, 1000, 1000, 4, 4, True),
+                  (2, 77, 130, 8, 2, False), (4, 1024, 1024, 32, 32, True))
+WIDE_DECODE = ((4, 1280, 32, 32, 1152), (3, 200, 8, 2, 77), (64, 1280, 32, 32, 1152),
+               (2, 1500, 4, 4, 1500))
+
+
+def wide_heads(port):
+    """K2 and K3 at D 224 against their plain versions in f32 and bf16."""
+    fa, da = port["fa"], port["da"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for scale in (None, (224 / 2) ** -0.5):
+            for b, s, t, h, kv, causal in WIDE_ATTENTION:
+                q = torch.randn(b, s, h, 224, generator=gen, device="cuda").to(dtype)
+                k, v = (torch.randn(b, t, kv, 224, generator=gen, device="cuda").to(dtype)
+                        for _ in range(2))
+                rows.append(compare("flash_attention D 224", [b, s, t, h, kv, causal, scale],
+                                    port["ops"].flash_attention(q, k, v, causal=causal,
+                                                                scale=scale),
+                                    fa.flash_attention_plain(q, k, v, causal=causal,
+                                                             scale=scale)))
+            for b, t, h, kv, length in WIDE_DECODE:
+                q = torch.randn(b, 1, h, 224, generator=gen, device="cuda").to(dtype)
+                k, v = (torch.randn(b, t, kv, 224, generator=gen, device="cuda").to(dtype)
+                        for _ in range(2))
+                lengths = torch.full((b,), length, dtype=torch.int32, device="cuda")
+                lengths[0] = max(1, length // 3)
+                rows.append(compare("flash_decode D 224", [b, t, h, kv, length, scale],
+                                    port["ops"].flash_decode(q, k, v, lengths, scale=scale),
+                                    da.decode_attention_plain(q, k, v, lengths, scale=scale)))
+    log(json.dumps({"wide_heads": rows}))
+    return rows
+
+
+def zamba2_7b(port):
+    """Zamba2-7B through ``ServeEngine.generate`` at its published widths:
+    one wave's launches exact by the path's structure (the decode steps
+    replayed from the decode graph), a traced wave's K3 kernels matching
+    its counts, and the logits each token was chosen from against the
+    benchmark's float32 reference (``own_gap`` exactly 0, ``logit_error``
+    under the cell's limit). Returns the summary."""
+    from perfbench.drivers import serve_waves
+
+    ops = port["ops"]
+    with open(os.path.join(ROOT, ZAMBA2["config"])) as f:
+        config = json.load(f)
+    m, mix = config["model"], ZAMBA2["mix"]
+    with open(os.path.join(ROOT, "perfbench", "limits", "zamba2-serve-chat.json")) as f:
+        limit = json.load(f)["logit_error"]["limit"]
+    calls, hyb, groups = m["n_layers"], len(m["hybrid_layer_ids"]), m["ssm_groups"]
+    norms = 2 * calls + 2 * hyb + 1
+    per_prefill = {"fused_rmsnorm": norms, "flash_attention": hyb, "flash_decode": 0,
+                   "ssd_chunk_dual": calls * groups}
+    per_step = {"fused_rmsnorm": norms, "flash_attention": 0, "flash_decode": hyb,
+                "ssd_chunk_dual": 0}
+    t0 = time.perf_counter()
+    cell = serve_waves.Cell(config, mix, ZAMBA2["seed"], torch.device("cuda"))
+    cell.setup()  # builds the model from the seed and serves a warm-up wave
+    setup_s = time.perf_counter() - t0
+    engine = cell.engine
+    require(engine.run.attention_impl == "flash", "the engine defaults to the kernels")
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    record = cell.call(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, peak = dict(ops.LAUNCHES), torch.cuda.max_memory_allocated()
+    steps = mix["new_tokens"] - 1
+    expect = {k: per_prefill[k] + steps * per_step[k] for k in per_prefill}
+    log(json.dumps({"model": m["name"], "launches": launches, "expected": expect,
+                    "per_prefill": per_prefill, "per_decode_step": per_step}))
+    require(launches == expect, "zamba2-7b: kernel launches match the path's structure")
+    require(engine._graph.graph is not None, "zamba2-7b: the wave's decode replayed a graph")
+    prompts = record["prompts"]
+    in_trace, wave_launches = traced_launches(
+        ops, lambda: engine.generate(prompts, max_new_tokens=3))
+    one_wave = {k: per_prefill[k] + 2 * per_step[k] for k in per_prefill}
+    log(json.dumps({"model": m["name"], "traced_wave": wave_launches, "in_trace": in_trace,
+                    "expected": one_wave}))
+    require(wave_launches == one_wave and in_trace["flash_decode"] == one_wave["flash_decode"]
+            and in_trace["ssd_chunk_dual"] == one_wave["ssd_chunk_dual"],
+            "zamba2-7b: a traced wave's counts follow the path's structure, and its K3 and K4 "
+            "kernels match them")
+    cell.release()
+    t0 = time.perf_counter()
+    got, _ = cell.readings([record])
+    check_s = time.perf_counter() - t0
+    summary = {"model": m["name"], "params": n_params, "batch": mix["batch_size"],
+               "padded": max(len(p) for p in prompts), "new_tokens": mix["new_tokens"],
+               "setup_s": setup_s, "wave_s": wall, "check_s": check_s, "readings": got,
+               "limit": limit, "max_memory_allocated": peak}
+    log(json.dumps({"zamba2_7b": summary}))
+    require(got["own_gap"] == 0 and got["logit_error"] <= limit,
+            f"zamba2-7b: the served logits meet the float32 reference ({got})")
+    return summary
+
+
 def cut_paths(port, full, tokens, layers):
     """A model of ``full``'s width cut to ``layers`` layers, seed-0 weights in
     f32 with TF32 off: prefill on the prompts less their last token and one
@@ -2992,6 +3106,10 @@ def main() -> int:
         seconds[f"serve {phase['arch']}"] = time.perf_counter() - t0
         for k, v in run_launches.items():
             launches[k] = launches.get(k, 0) + v
+    t0 = time.perf_counter()
+    wide_heads(port)
+    zamba2_7b(port)
+    seconds["serve zamba2-7b"] = time.perf_counter() - t0
     for label, fn in (("analyzer", analyzer), ("waves", waves), ("service", service),
                       ("calibration", calibration), ("accelerator graphs", accelerator_graphs),
                       ("ibench", ibench)):

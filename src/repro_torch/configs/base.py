@@ -7,7 +7,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -37,15 +37,27 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_chunk: int = 256
     ssm_conv: int = 4
+    ssm_groups: int = 1  # B and C groups: head h reads group h // (heads / groups)
+    ssm_conv_bias: bool = False
+    ssm_dt_min: float = 0.0  # dt clamped below at this (0: no clamp)
 
     # Hybrid (Zamba2): one shared attention block applied every k layers.
     hybrid_attn_every: int = 0
+    # The published Zamba2 layout (non-empty ``hybrid_layer_ids``): every
+    # layer a Mamba-2 layer, the j-th listed one first running shared block
+    # j % hybrid_blocks (attention on concat(x, embed0), then a gated MLP
+    # with a rank-``adapter_rank`` adapter of its own) and a d x d linear
+    # whose output enters that layer's Mamba input.
+    hybrid_layer_ids: Sequence[int] = ()
+    hybrid_blocks: int = 0
+    adapter_rank: int = 0
 
     # Attention details
     qk_norm: bool = False
     rope_theta: float = 10000.0
     window: int = 0  # sliding window size; 0 = full causal
     attn_logit_softcap: float = 0.0
+    attn_scale: float = 0.0  # softmax scale of the scores; 0: 1 / sqrt(d_head)
 
     # Encoder-decoder / modality frontends (audio/vlm backbones).
     encoder_decoder: bool = False
@@ -53,10 +65,15 @@ class ModelConfig:
     frontend: str = "none"  # none | audio_stub | vision_stub
     frontend_len: int = 0  # stub frames / patches per example
 
-    act: str = "swiglu"  # swiglu | gelu
+    act: str = "swiglu"  # swiglu | gelu (tanh) | geglu (erf-GELU gate times up)
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
+
+    @property
+    def published_hybrid(self) -> bool:
+        """A hybrid of the published Zamba2 layout (``hybrid_layer_ids``)."""
+        return self.family == "hybrid" and bool(self.hybrid_layer_ids)
 
     @property
     def padded_vocab(self) -> int:
@@ -103,6 +120,15 @@ class ModelConfig:
             di, n = self.d_inner, self.ssm_state
             per = d * (2 * di + 2 * n + self.ssm_heads) + di * d + 3 * self.ssm_heads
             total += self.n_layers * (per + d)
+        elif self.published_hybrid:
+            di, nh = self.d_inner, self.ssm_heads
+            conv = di + 2 * self.ssm_groups * self.ssm_state
+            per_mamba = (d * (di + conv + nh) + self.ssm_conv * conv
+                         + conv * self.ssm_conv_bias + 3 * nh + di + di * d + d)
+            block = (2 * d) * h_q + 2 * (2 * d) * h_kv + h_q * d + 3 * d * ff + 3 * d
+            per_hybrid = d * d + self.adapter_rank * (d + 2 * ff)
+            total += (self.n_layers * per_mamba + self.hybrid_blocks * block
+                      + len(self.hybrid_layer_ids) * per_hybrid)
         elif self.family == "hybrid":
             di, n = self.d_inner, self.ssm_state
             per_mamba = d * (2 * di + 2 * n + self.ssm_heads) + di * d + d

@@ -1,6 +1,8 @@
 // Flash decode: one query token for each head of a grouped-query group
 // against a length-masked KV cache, split over the keys (flash-decoding);
-// online softmax in f32, optional sliding window and logit softcap.
+// online softmax in f32, optional sliding window and logit softcap; the
+// scores are scale * (q.k), the scale the wrapper's (1/sqrt(D) unless the
+// model gives its own).
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:
 // decode_attention_bkgd (_decode_kernel). That kernel takes q (BK,G,D) and
@@ -31,7 +33,8 @@
 //    columns with the 128- or 64-byte swizzle, as K2's; at D 80 one
 //    unswizzled box of 160-byte rows, whose ldmatrix reads meet 2-way bank
 //    conflicts, measured 1.13x faster at zamba2's shape than five 32-byte
-//    boxes) into a ring of 2 to 4 stages with an mbarrier each; a split of
+//    boxes) into a ring of 2 to 4 stages (at most 3 above D 128, whose four
+//    would not fit in shared memory) with an mbarrier each; a split of
 //    several tiles keeps them all in flight, and a stage is refilled once
 //    every warp has read it. Keys past T arrive as zeros and are masked with
 //    the rest.
@@ -120,7 +123,13 @@ struct Ring {
   static constexpr int MERGE_END = WTS + 4 * kGroup * kMaxCluster;
   static_assert(D % 16 == 0 && BOX % 1024 == 0, "boxes must keep the swizzle's alignment");
   static_assert(MERGE_END <= 2 * 2 * TILE, "the smallest ring must hold the merge");
-  static int smem(int stages) { return 1024 + stages * 2 * TILE + 2 * kGroup * QROW + 8 * stages; }
+  static constexpr int FIXED = 1024 + 2 * kGroup * QROW, STAGE = 2 * TILE + 8;
+  static int smem(int stages) { return FIXED + stages * STAGE; }
+  // The most stages that fit the SM's shared memory, up to kMaxStages.
+  static constexpr int MAX_STAGES = FIXED + kMaxStages * STAGE <= 232448 ? kMaxStages
+                                    : FIXED + (kMaxStages - 1) * STAGE <= 232448 ? kMaxStages - 1
+                                                                                  : 2;
+  static_assert(FIXED + MAX_STAGES * STAGE <= 232448, "two stages must fit the SM's shared memory");
 };
 
 // One CTA: split blockIdx.x of (kv head and head group blockIdx.y, batch
@@ -417,7 +426,10 @@ template <typename T, int D>
 struct Dec {
   static constexpr int V = repro::kVec16<T>;  // elements per 16-byte vector
   static constexpr int RS = D + V;            // padded row, elements
-  static constexpr int TILE = kBK * RS;
+  // Keys a tile: half of kBK above D 128, whose two stages of 64 keys of K
+  // and V would pass the SM's shared memory.
+  static constexpr int BK = D <= 128 ? kBK : kBK / 2;
+  static constexpr int TILE = BK * RS;
   // Output (head, dim pair) items a thread holds at most: kGroup heads.
   static constexpr int IPT = (kGroup * D / 2 + kThreads - 1) / kThreads;
   static_assert(D % V == 0 && D % 2 == 0, "D must split into 16-byte vectors");
@@ -425,7 +437,7 @@ struct Dec {
   // f32 queries, scores, per-head m, l, alpha and the slice partials.
   static int smem_bytes(int nh) {
     return static_cast<int>(4 * TILE * sizeof(T) +
-                            sizeof(float) * (nh * D + nh * kBK + 3 * nh + 2 * kThreads));
+                            sizeof(float) * (nh * D + nh * BK + 3 * nh + 2 * kThreads));
   }
 };
 
@@ -433,7 +445,7 @@ template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride, int t0,
                                           int vlo, int vhi) {
   constexpr int V = Dec<T, D>::V, RS = Dec<T, D>::RS, PER_ROW = D / V;
-  for (int i = threadIdx.x; i < kBK * PER_ROW; i += kThreads) {
+  for (int i = threadIdx.x; i < Dec<T, D>::BK * PER_ROW; i += kThreads) {
     const int j = i / PER_ROW, c = (i % PER_ROW) * V;
     const int kp = t0 + j;
     const bool ok = kp >= vlo && kp < vhi;
@@ -451,6 +463,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     long long v_st, int window, float scale, float softcap) {
   constexpr int RS = Dec<T, D>::RS, TILE = Dec<T, D>::TILE, V = Dec<T, D>::V;
   constexpr int IPT = Dec<T, D>::IPT;
+  constexpr int kBK = Dec<T, D>::BK;  // keys a tile of this kernel
   constexpr int DP = D / 2;  // dim pairs
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);  // [stage][kBK][RS]
@@ -725,7 +738,7 @@ bool encode(CUtensorMap* map, const void* ptr, int heads, int rows, int batch,
 
 template <int D, int NB>
 int launch_cluster(const Args& a, cudaStream_t stream) {
-  const int stages = min(kMaxStages, max(2, a.split_len / kBK));
+  const int stages = min(Ring<D>::MAX_STAGES, max(2, a.split_len / kBK));
   const int smem = Ring<D>::smem(stages);
   const auto kernel = decode_cluster_kernel<D, NB>;
   static int configured = 0;  // bytes the attribute was last raised to
@@ -786,6 +799,7 @@ int launch(const Args& a, int d, cudaStream_t stream) {
     REPRO_CASE(80)
     REPRO_CASE(96)
     REPRO_CASE(128)
+    REPRO_CASE(224)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_CASE

@@ -18,7 +18,8 @@
 // never loaded, and only tiles that cross the diagonal, the window's edge or
 // T pay for the mask; keys past T and queries past S are masked, so any S
 // and T work. A query row with no visible key gives 0. Scores are
-// s = (q.k)/sqrt(D), then softcap * tanh(s / softcap) where softcap > 0.
+// s = scale * (q.k) in f32 (the wrapper passes 1/sqrt(D) unless the model
+// gives its own scale), then softcap * tanh(s / softcap) where softcap > 0.
 //
 // Bound on the H100: at the serve shape (S = T = 512, D = 64, causal) bytes
 // and operations are close, 5.6 us to move q, k, v and out once against
@@ -29,12 +30,17 @@
 // fed from shared memory by TMA, warp-specialised.
 //  - A CTA is a producer warpgroup and one consumer warpgroup of 64 query
 //    rows (two CTAs an SM) up to D 64, two consumers (128 rows, one CTA an
-//    SM) above it (``Shape``). The producer gives up registers (setmaxnreg
+//    SM) up to D 128 (``Shape``). The producer gives up registers (setmaxnreg
 //    24) and the consumers ask for the rest; ptxas still allocates every
 //    thread under the launch bounds' cap (128 or 168 registers), which is
-//    what sizes the tiles.
+//    what sizes the tiles. Above D 128 (Zamba2's 224) one consumer's O alone
+//    holds D / 2 floats a thread, more than 168 registers leave room for: a
+//    CTA is one consumer and the producer (256 threads, one CTA an SM), whose
+//    cap of 255 registers holds O, S and P, with no reallocation; its ring
+//    has three stages, as four do not fit beside Q in shared memory.
 //  - One producer thread loads the CTA's Q tile once, then K and V tiles of
-//    64 keys into a ring of four stages with cp.async.bulk.tensor; each
+//    64 keys into a ring of four stages (three above D 128) with
+//    cp.async.bulk.tensor; each
 //    stage has a full mbarrier (the TMA bytes land on it) and an empty one
 //    (each consumer warp arrives when its products have read the stage).
 //  - S = Q.K^T is wgmma m64n64k16 with Q and K both K-major (D contiguous)
@@ -99,7 +105,7 @@ __device__ __forceinline__ float cap(float s, float softcap) {
 // ---------------------------------------------------------------------------
 
 constexpr int kBK = 64;       // keys per KV tile
-constexpr int kStages = 4;    // K/V tiles in the ring
+constexpr int kStages = 4;    // K/V tiles in the ring up to D 128
 constexpr int kProducerRegs = 24;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -111,9 +117,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Registers after setmaxnreg: the producer keeps 24, the consumers share
 // the rest of a CTA's part of the SM's 64K, less 1K (at most 240 a
 // thread; a split that adds up to all 64K left setmaxnreg.inc waiting).
+// Above D 128 one consumer and the producer, one CTA an SM, and no
+// reallocation (WIDE).
 template <int D>
 struct Shape {
-  static constexpr int CONSUMERS = D <= 64 ? 1 : 2;
+  static constexpr bool WIDE = D > 128;
+  static constexpr int CONSUMERS = D <= 64 || WIDE ? 1 : 2;
   static constexpr int CTAS = D <= 64 ? 2 : 1;
   static constexpr int BQ = 64 * CONSUMERS;  // queries per CTA
   static constexpr int THREADS = 128 * (CONSUMERS + 1);
@@ -123,20 +132,22 @@ struct Shape {
 };
 
 // Shared memory of one CTA: Q, then the K stages, the V stages and the
-// barriers (full[kStages], empty[kStages], q_full), after up to 1024 bytes
+// barriers (full[STAGES], empty[STAGES], q_full), after up to 1024 bytes
 // that align the tiles to the swizzle's period.
 template <int D>
 struct Tiles {
+  static constexpr int STAGES = D <= 128 ? kStages : 3;
   static constexpr int W = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;  // columns of a box
   static constexpr int BOXES = D / W;
   static constexpr int ROW = 2 * W;                                   // bytes of a box row
   static constexpr uint32_t SWIZZLE = W == 64 ? 1 : W == 32 ? 2 : 3;  // descriptor code
   static constexpr int Q_BOX = Shape<D>::BQ * ROW, KV_BOX = kBK * ROW;
   static constexpr int Q_BYTES = BOXES * Q_BOX, KV_BYTES = BOXES * KV_BOX;
-  static constexpr int BARRIERS = Q_BYTES + 2 * kStages * KV_BYTES;
-  static constexpr int SMEM = 1024 + BARRIERS + 8 * (2 * kStages + 1);
+  static constexpr int BARRIERS = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int SMEM = 1024 + BARRIERS + 8 * (2 * STAGES + 1);
   static_assert(D % 16 == 0 && Q_BOX % 1024 == 0 && KV_BOX % 1024 == 0,
                 "boxes must keep the swizzle's alignment");
+  static_assert(SMEM <= 232448, "a CTA's tiles must fit the SM's shared memory");
 };
 
 // One unit of work: a tile of BQ queries of one (batch, head), and the KV
@@ -181,25 +192,26 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                             int n_heads, int n_kv, long long o_sb, long long o_ss, int causal,
                             int window, int q_offset, float scale, float softcap) {
   using T = Tiles<D>;
+  constexpr int kS = T::STAGES;
   constexpr int KD = D / 16;    // k-slices of Q.K^T
   constexpr int NB = kBK / 8;   // 8-key column blocks of S
   constexpr int NO = D / 8;     // 8-dim column blocks of O
   constexpr int KP = kBK / 16;  // k-slices of P.V
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t qs = base, ks = base + T::Q_BYTES, vs = ks + kStages * T::KV_BYTES;
-  // Barriers: full[kStages], empty[kStages], q_full.
+  const uint32_t qs = base, ks = base + T::Q_BYTES, vs = ks + kS * T::KV_BYTES;
+  // Barriers: full[kS], empty[kS], q_full.
   const uint32_t bars = base + T::BARRIERS;
-  auto full = [&](int i) { return bars + 8 * (i % kStages); };
-  auto empty = [&](int i) { return bars + 8 * (kStages + i % kStages); };
-  const uint32_t q_full = bars + 16 * kStages;
+  auto full = [&](int i) { return bars + 8 * (i % kS); };
+  auto empty = [&](int i) { return bars + 8 * (kS + i % kS); };
+  const uint32_t q_full = bars + 16 * kS;
   const Work w = work_item<Shape<D>::BQ>(blockIdx.x, batch, s_len, t_len, n_heads, n_kv, causal,
                                           window, q_offset);
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < kS; ++i) {
       repro::mbar_init(full(i), 1);
       repro::mbar_init(empty(i), 4 * Shape<D>::CONSUMERS);
     }
@@ -210,7 +222,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (wg == Shape<D>::CONSUMERS) {
     // Producer: one thread issues every load.
-    repro::setmaxnreg_dec<kProducerRegs>();
+    if constexpr (!Shape<D>::WIDE) repro::setmaxnreg_dec<kProducerRegs>();
     if (tid == 0 && w.n_tiles > 0) {
       repro::tma_prefetch_map(&qmap);
       repro::tma_prefetch_map(&kmap);
@@ -220,9 +232,9 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int c = 0; c < T::BOXES; ++c)
         repro::tma_load_4d(qs + c * T::Q_BOX, &qmap, q_full, c * T::W, w.h, w.q0, w.b);
       for (int it = 0; it < w.n_tiles; ++it) {
-        if (it >= kStages) repro::mbar_wait(empty(it), (it / kStages - 1) & 1);
+        if (it >= kS) repro::mbar_wait(empty(it), (it / kS - 1) & 1);
         repro::mbar_arrive_expect_tx(full(it), 2 * T::KV_BYTES);
-        const int s = it % kStages, t0 = w.t_first + it * kBK;
+        const int s = it % kS, t0 = w.t_first + it * kBK;
 #pragma unroll
         for (int c = 0; c < T::BOXES; ++c) {
           repro::tma_load_4d(ks + s * T::KV_BYTES + c * T::KV_BOX, &kmap, full(it), c * T::W,
@@ -236,7 +248,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // Consumers.
-  repro::setmaxnreg_inc<Shape<D>::CONSUMER_REGS>();
+  if constexpr (!Shape<D>::WIDE) repro::setmaxnreg_inc<Shape<D>::CONSUMER_REGS>();
   const int warp = tid >> 5, lane = tid & 31;
   const int group = lane >> 2, quad = lane & 3;
   const int qw0 = w.q0 + 64 * wg;  // this warpgroup's first query
@@ -256,8 +268,8 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   // Issue S = Q.K^T of tile ``it`` (this warpgroup's 64 rows against the
   // tile's keys) once its stage has landed.
   auto issue_scores = [&](int it) {
-    const uint32_t kt = ks + (it % kStages) * T::KV_BYTES;
-    repro::mbar_wait(full(it), (it / kStages) & 1);
+    const uint32_t kt = ks + (it % kS) * T::KV_BYTES;
+    repro::mbar_wait(full(it), (it / kS) & 1);
 #pragma unroll
     for (int j = 0; j < KD; ++j) {
       const int c = 16 * j / T::W, off = (16 * j % T::W) * 2;
@@ -269,7 +281,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   // Issue O += P.V of tile ``it``, hi and lo through the same V slice.
   auto issue_pv = [&](int it) {
-    const uint32_t vt = vs + (it % kStages) * T::KV_BYTES;
+    const uint32_t vt = vs + (it % kS) * T::KV_BYTES;
 #pragma unroll
     for (int j = 0; j < KP; ++j) {
       const uint64_t dv =
@@ -405,7 +417,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     release(w.n_tiles - 1);
   } else {  // no query of this warpgroup is below S: only free the stages
     for (int it = 0; it < w.n_tiles; ++it) {
-      repro::mbar_wait(full(it), (it / kStages) & 1);
+      repro::mbar_wait(full(it), (it / kS) & 1);
       release(it);
     }
   }
@@ -435,22 +447,23 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ32 = 64;  // queries per CTA of the f32 kernel
-constexpr int kBK32 = 32;  // keys per KV tile of the f32 kernel
 
 // How a query row's D dims are split over threads: TPR threads (a power of
 // two, so a row's threads sit in one warp) of DP dims each, the fewest
 // threads that leave at most 40 dims a thread; PS floats per (key, thread
 // part) in shared memory, padded so the parts of a row start in different
-// banks.
+// banks; BK keys a KV tile (16 above D 128, whose K and V tiles of 32 keys
+// would pass the 48 KB of static shared memory).
 template <int D>
 struct Split {
   static constexpr int TPR = D <= 40 ? 1 : D <= 80 ? 2 : D <= 160 ? 4 : 8;
   static constexpr int DP = D / TPR;
   static constexpr int PS = DP + 4;
+  static constexpr int BK = D <= 128 ? 32 : 16;
   static_assert(D % TPR == 0 && DP % 4 == 0, "D must split into 16-byte vectors");
 };
 
-// Stage rows t0..t0+kBK32-1 of one KV head into dst[key][part][PS]; rows at
+// Stage rows t0..t0+BK-1 of one KV head into dst[key][part][PS]; rows at
 // or past tk are zero.
 template <int D>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ base,
@@ -458,7 +471,7 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* 
   constexpr int PER_ROW = D / 4;
   constexpr int kDP = Split<D>::DP, kPS = Split<D>::PS;
   constexpr int RS = Split<D>::TPR * kPS;
-  for (int i = threadIdx.x; i < kBK32 * PER_ROW; i += blockDim.x) {
+  for (int i = threadIdx.x; i < Split<D>::BK * PER_ROW; i += blockDim.x) {
     const int j = i / PER_ROW;
     const int c = (i % PER_ROW) * 4;
     float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -479,6 +492,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   constexpr int TPR = Split<D>::TPR;  // threads per query row
   constexpr int kDP = Split<D>::DP, kPS = Split<D>::PS;
   constexpr int RS = TPR * kPS;
+  constexpr int kBK32 = Split<D>::BK;
   __shared__ __align__(16) float ks[kBK32 * RS];
   __shared__ __align__(16) float vs[kBK32 * RS];
 
@@ -663,6 +677,7 @@ int launch(const Args& a, int d, cudaStream_t stream) {
     REPRO_CASE(80)
     REPRO_CASE(96)
     REPRO_CASE(128)
+    REPRO_CASE(224)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_CASE

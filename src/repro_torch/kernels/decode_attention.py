@@ -4,7 +4,8 @@ Both take the model's layouts, q (B,1,H,D) against a KV cache k/v (B,T,K,D)
 with ``lengths`` (B,) valid positions per row, and compute the G = H/K query
 heads of a group against their KV head in place. Row b attends to the keys
 ``[max(0, len - window), len)`` (all of ``[0, len)`` when ``window`` is 0),
-with scores capped as ``softcap * tanh(s / softcap)`` where ``softcap > 0``,
+with scores ``scale * q.k`` in f32 (``scale`` None: ``1 / sqrt(D)``) capped
+as ``softcap * tanh(s / softcap)`` where ``softcap > 0``,
 as ``repro.models.layers.decode_attention`` does; any T works, and a row of
 length 0 gives zeros, as the TPU kernel does.
 
@@ -27,15 +28,15 @@ other, and copies nothing.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import softmax_scale
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (32, 64, 80, 96, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128, 224)
 NEG_INF = -1e30
 BLOCK_K = 64       # keys per tile; a split is a multiple of it
 HEAD_GROUP = 16    # query heads per CTA at most; larger groups take more CTAs
@@ -67,7 +68,7 @@ def head_groups(g: int) -> int:
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor, *, window: int = 0,
-                           softcap: float = 0.0,
+                           softcap: float = 0.0, scale: Optional[float] = None,
                            splits: Optional[int] = None) -> torch.Tensor:
     """The kernel's algorithm in PyTorch: a softmax state (m, l, acc) in f32
     per split of the keys, merged as the kernel merges them. ``splits``
@@ -80,7 +81,7 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         n, split_len = num_splits(t, b * n_kv * head_groups(g))
     else:
         n, split_len = _cut(t, splits)
-    scale = 1.0 / math.sqrt(d)
+    scale = softmax_scale(d, scale)
     qg = q[:, 0].float().reshape(b, n_kv, g, d)
     pad = n * split_len - t
     kt = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad)).reshape(
@@ -157,7 +158,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor, *, window: int = 0,
-                          softcap: float = 0.0) -> torch.Tensor:
+                          softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
     """Launch the kernel (bf16: one clustered launch; f32: two passes through
     a scratch); the output is a new contiguous (B,1,H,D) tensor."""
     check_tma_layout(q, k, v)
@@ -180,6 +181,6 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.data_ptr(), None if scratch is None else scratch.data_ptr(), b, n_kv, g, t, d,
         n, split_len,
         q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        out.stride(0), int(window), 1.0 / math.sqrt(d), float(softcap),
+        out.stride(0), int(window), softmax_scale(d, scale), float(softcap),
         _build.stream()))
     return out

@@ -4,8 +4,10 @@ Both take the model's layouts, q (B,S,H,D) against k/v (B,T,K,D) with
 H a multiple of K, and read KV head ``h // (H/K)`` for query head h: no KV
 head is copied and nothing is transposed. Both mask the ragged edge, so any
 S and T work, skip KV tiles no query can see, and give 0 for a query that
-sees no key. Query i sits at position ``i + q_offset``; ``softcap > 0``
-caps the scores as ``softcap * tanh(s / softcap)``, as
+sees no key. Query i sits at position ``i + q_offset``; the scores are
+``scale * q.k`` in f32 (``scale`` None: ``1 / sqrt(D)``; q is never
+scaled before its product), and ``softcap > 0`` caps them as
+``softcap * tanh(s / softcap)``, as
 ``repro.models.layers.chunked_attention`` does. The kernel
 (``csrc/flash_attention.cu``: bf16 on Hopper's wgmma, fed by TMA; f32 on
 the CUDA cores) replaces the TPU kernel
@@ -23,13 +25,14 @@ eager attention with ``jax.grad`` and has no backward kernel.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (32, 64, 80, 96, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128, 224)
 BLOCK_K = 64  # keys per KV tile, as in the bf16 kernel
 NEG_INF = -1e30
 # The backward recomputes the scores one block of queries at a time: a block
@@ -65,9 +68,14 @@ def _as_terms(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return hi + (p - hi).to(dtype).float()
 
 
+def softmax_scale(d: int, scale: Optional[float]) -> float:
+    """The scores' scale: ``scale``, or ``1 / sqrt(d)`` where it is None."""
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0, q_offset: int = 0,
-                          softcap: float = 0.0) -> torch.Tensor:
+                          softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's algorithm in PyTorch: online softmax over KV tiles of
     ``BLOCK_K`` keys with f32 running max, sum and accumulator. For bf16
     inputs p enters the P.V product as two bf16 terms, hi + lo (as the bf16
@@ -75,7 +83,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, d = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     g = h // n_kv
-    scale = 1.0 / math.sqrt(d)
+    scale = softmax_scale(d, scale)
     qg = _wide(q).reshape(b, s, n_kv, g, d)
     f = dict(device=q.device, dtype=qg.dtype)
     qpos = torch.arange(s, device=q.device) + q_offset
@@ -106,12 +114,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, dout: torch.Tensor, *,
                              causal: bool = True, window: int = 0, q_offset: int = 0,
-                             softcap: float = 0.0):
+                             softcap: float = 0.0, scale: Optional[float] = None):
     """Gradients (dq, dk, dv) of the attention that gave ``out`` for the
     output gradient ``dout``, in f32 (f64 for f64 inputs), each cast to its
     input's dtype.
 
-    Per block of queries it recomputes ``s = q k^T / sqrt(D)`` against the
+    Per block of queries it recomputes ``s = scale q k^T`` (``scale``
+    None: ``1 / sqrt(D)``, written so below) against the
     keys the block can see (query head h reads KV head ``h // (H/K)``), the
     softcap ``c tanh(s / c)``, the masks and ``P = softmax(s)``; then
     ``dV += sum over the group of P^T dO``, ``dP = dO V^T``,
@@ -121,7 +130,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, d = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     g = h // n_kv
-    scale = 1.0 / math.sqrt(d)
+    scale = softmax_scale(d, scale)
     qg = _wide(q).reshape(b, s, n_kv, g, d)
     dog = _wide(dout).reshape(b, s, n_kv, g, d)
     # rowsum(dO * O): (B,K,G,S)
@@ -209,7 +218,7 @@ def check_tma_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0, q_offset: int = 0,
-                         softcap: float = 0.0) -> torch.Tensor:
+                         softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
     """Launch the kernel; the output is a new contiguous (B,S,H,D) tensor."""
     check_tma_layout(q, k, v)
     _check(q, k, v)
@@ -228,6 +237,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, t, h, n_kv, d,
         *_strides(q), *_strides(k), *_strides(v), out.stride(0), out.stride(1),
-        int(causal), int(window), int(q_offset), 1.0 / math.sqrt(d), float(softcap),
+        int(causal), int(window), int(q_offset), softmax_scale(d, scale), float(softcap),
         _build.stream()))
     return out

@@ -33,7 +33,7 @@ heads are sharded gets a partial-sum gradient there.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -194,8 +194,9 @@ class FlashAttention(torch.autograd.Function):
     time."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, softcap):
-        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+    def forward(ctx, q, k, v, causal, window, q_offset, softcap, scale):
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap,
+                      scale=scale)
         out = _attention(q, k, v, ctx.kw)
         ctx.save_for_backward(q, k, v, out)
         return out
@@ -204,7 +205,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 class SSDChunkDual(torch.autograd.Function):
@@ -238,20 +239,21 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
-    """q (B,S,H,D); k/v (B,T,K,D) grouped-query -> (B,S,H,D)."""
+                    softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,S,H,D); k/v (B,T,K,D) grouped-query -> (B,S,H,D); the scores
+    are ``scale * q.k`` (None: ``1 / sqrt(D)``)."""
     if _is_dtensor(q, k, v):
         for what, t in (("q", q), ("k", k), ("v", v)):
             _whole("flash_attention", what, t, (1, 3))
         _alike("flash_attention", "q and k", q, k, (0, 2), (0, 2))
         _alike("flash_attention", "k and v", k, v, (0, 2), (0, 2))
         out = flash_attention(q.to_local(), k.to_local(), v.to_local(), causal=causal,
-                              window=window, q_offset=q_offset, softcap=softcap)
+                              window=window, q_offset=q_offset, softcap=softcap, scale=scale)
         return _wrap(out, q, q.shape)
     if _needs_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, window, q_offset, softcap)
+        return FlashAttention.apply(q, k, v, causal, window, q_offset, softcap, scale)
     return _attention(q, k, v, dict(causal=causal, window=window, q_offset=q_offset,
-                                     softcap=softcap))
+                                     softcap=softcap, scale=scale))
 
 
 def _local_lengths(q, lengths: torch.Tensor) -> torch.Tensor:
@@ -266,8 +268,9 @@ def _local_lengths(q, lengths: torch.Tensor) -> torch.Tensor:
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  lengths: torch.Tensor, *, window: int = 0,
-                 softcap: float = 0.0) -> torch.Tensor:
-    """q (B,1,H,D); k/v cache (B,T,K,D); lengths (B,) -> (B,1,H,D). One
+                 softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,1,H,D); k/v cache (B,T,K,D); lengths (B,) -> (B,1,H,D), the
+    scores ``scale * q.k`` (None: ``1 / sqrt(D)``). One
     launch counts one call: bf16's single clustered launch, or the f32
     path's two passes (split and combine)."""
     if _is_dtensor(q, k_cache, v_cache):
@@ -276,13 +279,14 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         _alike("flash_decode", "q and k_cache", q, k_cache, (0, 2), (0, 2))
         _alike("flash_decode", "k_cache and v_cache", k_cache, v_cache, (0, 2), (0, 2))
         out = flash_decode(q.to_local(), k_cache.to_local(), v_cache.to_local(),
-                           _local_lengths(q, lengths), window=window, softcap=softcap)
+                           _local_lengths(q, lengths), window=window, softcap=softcap,
+                           scale=scale)
         return _wrap(out, q, q.shape)
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, lengths, window=window,
-                                      softcap=softcap)
+                                      softcap=softcap, scale=scale)
     out = decode_attention_cuda(q, k_cache, v_cache, lengths, window=window,
-                                softcap=softcap)
+                                softcap=softcap, scale=scale)
     LAUNCHES["flash_decode"] += 1
     return out
 

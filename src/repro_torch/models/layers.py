@@ -22,6 +22,7 @@ from torch import nn
 from repro_torch.distributed import constrain, current_mesh
 from repro_torch.distributed.sharding import einsum, gathered, write_positions
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import softmax_scale
 
 DATA = ("pod", "data")  # batch axes (sanitized away when the mesh lacks "pod")
 MODEL = "model"
@@ -138,17 +139,19 @@ def _group_query(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 
 def naive_attention(q, k, v, causal: bool = True, window: int = 0,
-                    q_offset: int = 0, softcap: float = 0.0) -> torch.Tensor:
+                    q_offset: int = 0, softcap: float = 0.0,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Materializes the full (S, T) score matrix.
 
-    q: (B,S,H,D); k/v: (B,T,K,D). Returns (B,S,H,D). Products of the
+    q: (B,S,H,D); k/v: (B,T,K,D). Returns (B,S,H,D). The scores are
+    ``scale * q.k`` (None: ``1 / sqrt(D)``). Products of the
     storage-dtype operands are summed in f32, and the probabilities are cast
     to v's dtype before the PV product, as in the reference.
     """
     b, s, h, d = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     qg = _group_query(q, n_kv)
-    scale = 1.0 / math.sqrt(d)
+    scale = softmax_scale(d, scale)
     scores = einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
     if softcap > 0:
         scores = softcap * torch.tanh(scores / softcap)
@@ -167,7 +170,7 @@ def naive_attention(q, k, v, causal: bool = True, window: int = 0,
 
 def chunked_attention(q, k, v, chunk: int = 512, causal: bool = True,
                       window: int = 0, q_offset: int = 0,
-                      softcap: float = 0.0) -> torch.Tensor:
+                      softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention over KV chunks (flash-style, eager).
 
     Falls to :func:`naive_attention` when T is not a multiple of ``chunk``,
@@ -176,9 +179,9 @@ def chunked_attention(q, k, v, chunk: int = 512, causal: bool = True,
     b, s, h, d = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     if t % chunk != 0:
-        return naive_attention(q, k, v, causal, window, q_offset, softcap)
+        return naive_attention(q, k, v, causal, window, q_offset, softcap, scale)
     qg = _group_query(q, n_kv).float()
-    scale = 1.0 / math.sqrt(d)
+    scale = softmax_scale(d, scale)
     qpos = (torch.arange(s, device=q.device) + q_offset)[:, None]  # (S,1)
     n_g = h // n_kv
     m = torch.full((b, n_kv, n_g, s), -1e30, device=q.device)
@@ -210,7 +213,7 @@ def chunked_attention(q, k, v, chunk: int = 512, causal: bool = True,
 
 
 def decode_attention(q, k_cache, v_cache, lengths, window: int = 0,
-                     softcap: float = 0.0) -> torch.Tensor:
+                     softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
     """Single-position attention against a (B,T,K,D) cache.
 
     q: (B,1,H,D); lengths: (B,) number of valid cache positions (inclusive of
@@ -222,7 +225,7 @@ def decode_attention(q, k_cache, v_cache, lengths, window: int = 0,
     t, n_kv = k_cache.shape[1], k_cache.shape[2]
     q = constrain(q, DATA, None, None, None)
     qg = _group_query(q, n_kv)[:, 0].to(k_cache.dtype)  # (B,K,G,D)
-    scale = 1.0 / math.sqrt(d)
+    scale = softmax_scale(d, scale)
     scores = einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float()) * scale
     if softcap > 0:
         scores = softcap * torch.tanh(scores / softcap)
@@ -272,10 +275,13 @@ def attention_block(
       on the device (no ``cache_fill``, no sharded cache).
     * ``kv_x`` (B,F,d) selects cross-attention: K/V are projected from it,
       with no rope, and S need not equal F.
+
+    The scores are scaled by ``cfg.attn_scale`` (0: ``1 / sqrt(d_head)``).
     """
     b, s, _ = x.shape
     h, k_heads, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     kernel = uses_kernels(run)
+    scale = getattr(cfg, "attn_scale", 0.0) or None
     x = gather_sequence(x)
     kv_src = x if kv_x is None else gather_sequence(kv_x)
     t = kv_src.shape[1]
@@ -305,24 +311,21 @@ def attention_block(
             fill = cache_fill if cache_fill is not None else cache_pos + s
             lengths = torch.full((b,), fill, dtype=torch.int32, device=x.device)
         win = 0 if cache_fill is not None else cfg.window
-        if kernel:
-            out = ops.flash_decode(q, k_cache, v_cache, lengths, window=win,
-                                   softcap=cfg.attn_logit_softcap)
-        else:
-            out = decode_attention(q, k_cache, v_cache, lengths, window=win,
-                                   softcap=cfg.attn_logit_softcap)
+        attend = ops.flash_decode if kernel else decode_attention
+        out = attend(q, k_cache, v_cache, lengths, window=win,
+                     softcap=cfg.attn_logit_softcap, scale=scale)
         new_kv = (k_cache, v_cache)
     else:
         if kernel:
             out = ops.flash_attention(q, kk, vv, causal=causal, window=cfg.window,
-                                      softcap=cfg.attn_logit_softcap)
+                                      softcap=cfg.attn_logit_softcap, scale=scale)
         elif run.attention_impl == "naive":
             out = naive_attention(q, kk, vv, causal=causal, window=cfg.window,
-                                  softcap=cfg.attn_logit_softcap)
+                                  softcap=cfg.attn_logit_softcap, scale=scale)
         else:
             out = chunked_attention(q, kk, vv, chunk=run.attention_chunk,
                                     causal=causal, window=cfg.window,
-                                    softcap=cfg.attn_logit_softcap)
+                                    softcap=cfg.attn_logit_softcap, scale=scale)
         new_kv = (kk, vv)
     out = constrain(out, DATA, None, MODEL, None)
     # The merged heads pinned to the row-parallel layout wo's product
@@ -337,12 +340,21 @@ def attention_block(
 # ---------------------------------------------------------------------------
 
 
-def mlp_block(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    """``params`` holds wi (d, 2*ff for swiglu, split [gate, up]) and wo."""
+def mlp_block(params, x: torch.Tensor, act: str,
+              adapter: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """``params`` holds wi (d, 2*ff for swiglu and geglu, split [gate, up])
+    and wo. geglu is ``gelu(gate) * up`` with the exact (erf) GELU;
+    ``adapter`` (A (d, r), B (r, 2*ff)), a low-rank term of the gated
+    product, adds ``(x @ A) @ B`` to ``x @ wi`` in place (Zamba2's
+    per-invocation MLP adapter; no third (B,S,2*ff) tensor)."""
     x = gather_sequence(x)
-    if act == "swiglu":
-        gate, up = constrain(x @ gathered(params.wi), DATA, None, MODEL).chunk(2, dim=-1)
-        hidden = F.silu(gate) * up
+    if act in ("swiglu", "geglu"):
+        gu = x @ gathered(params.wi)
+        if adapter is not None:  # accumulated into gu by the product itself
+            low = x @ adapter[0]
+            gu.view(-1, gu.shape[-1]).addmm_(low.view(-1, low.shape[-1]), adapter[1])
+        gate, up = constrain(gu, DATA, None, MODEL).chunk(2, dim=-1)
+        hidden = (F.silu(gate) if act == "swiglu" else F.gelu(gate)) * up
     else:
         hidden = F.gelu(x @ gathered(params.wi), approximate="tanh")  # jax.nn.gelu
         hidden = constrain(hidden, DATA, None, MODEL)

@@ -7,9 +7,15 @@ With the kernel-backed run config (``attention_impl="flash"``) the
 intra-chunk part (each chunk's output and state) comes from
 ``ops.ssd_chunk_dual``; the recurrence stays here. ``chunked`` and ``naive``
 keep the reference's plain form. Decode is the O(1)-state recurrence and
-runs no kernel. ``chunk_shard`` (``RunConfig.ssd_chunk_shard``) and the
-reference's sharding constraints are ``constrain`` calls at its points, which
-return their input when no mesh is set.
+runs no kernel. B and C come in ``cfg.ssm_groups`` G groups (one for
+mamba2-130m and the simplified hybrid), head h reading group ``h // (H /
+G)``: the scan runs once per group on its heads (so the kernel launches once
+a group), decode reads each head's group, and the gated norm normalises each
+group of ``d_inner / G`` channels apart (``gated_group_norm``). ``cfg.ssm_conv_bias`` adds the conv's bias before its SiLU and
+``cfg.ssm_dt_min`` clamps dt below. ``chunk_shard``
+(``RunConfig.ssd_chunk_shard``) and the reference's sharding constraints are
+``constrain`` calls at its points, which return their input when no mesh is
+set.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from repro_torch.distributed import constrain, current_mesh
 from repro_torch.distributed.sharding import einsum, gathered, is_distributed, on_local_shard
 from repro_torch.kernels import ops
 from repro_torch.models.layers import DATA, MODEL, ParamGroup, gather_sequence, rms_norm
+from repro_torch.tracing import span
 
 # Heads per step of the plain intra-chunk form, which bounds its (B,nc,Q,Q,h)
 # decay tensor, as the reference's ``head_block`` default.
@@ -30,23 +37,28 @@ HEAD_BLOCK = 4
 
 
 class MambaBlock(ParamGroup):
-    """in_proj (d, 2*di + 2*N + H: z, x, B, C, dt), conv_w (K, di + 2*N),
-    A_log (H,) zeros, D (H,) ones, dt_bias (H,) zeros, ssm_norm (di,) ones and
-    out_proj (di, d), in the reference's layouts."""
+    """in_proj (d, 2*di + 2*G*N + H: z, x, B, C, dt), conv_w (K, di + 2*G*N),
+    conv_b (di + 2*G*N,) zeros under ``cfg.ssm_conv_bias``, A_log (H,) zeros,
+    D (H,) ones, dt_bias (H,) zeros, ssm_norm (di,) ones and out_proj (di, d),
+    in the reference's layouts (G = ``cfg.ssm_groups``)."""
 
     def __init__(self, cfg, *, generator, device, dtype):
-        d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-        super().__init__(
-            {"in_proj": (d, 2 * di + 2 * n + nh), "conv_w": (cfg.ssm_conv, di + 2 * n),
-             "A_log": (nh,), "D": (nh,), "dt_bias": (nh,), "ssm_norm": (di,),
-             "out_proj": (di, d)},
-            ones=("D", "ssm_norm"), zeros=("A_log", "dt_bias"),
-            generator=generator, device=device, dtype=dtype)
+        d, di, nh = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+        conv = di + 2 * cfg.ssm_groups * cfg.ssm_state
+        shapes = {"in_proj": (d, di + conv + nh), "conv_w": (cfg.ssm_conv, conv)}
+        if cfg.ssm_conv_bias:
+            shapes["conv_b"] = (conv,)
+        shapes.update({"A_log": (nh,), "D": (nh,), "dt_bias": (nh,), "ssm_norm": (di,),
+                       "out_proj": (di, d)})
+        super().__init__(shapes, ones=("D", "ssm_norm"), zeros=("A_log", "dt_bias", "conv_b"),
+                         generator=generator, device=device, dtype=dtype)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal conv1d via shifted adds. x: (B,S,C); w: (K,C).
+                 state: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d via shifted adds. x: (B,S,C); w: (K,C);
+    ``bias`` (C,) added before the SiLU.
 
     ``state``: (B, K-1, C) trailing context from the previous segment.
     Returns (silu(y), new_state)."""
@@ -58,16 +70,57 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     y = torch.zeros_like(x)
     for i in range(k):
         y = y + xp[:, i:i + s, :] * w[i]
+    if bias is not None:
+        y = y + bias
     new_state = xp[:, -(k - 1):, :].contiguous() if k > 1 else state
     return F.silu(y), new_state
 
 
 def _split_proj(proj: torch.Tensor, cfg):
-    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    di, n, nh = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
     z = proj[..., :di]
     xbc = proj[..., di:di + di + 2 * n]
     dt = proj[..., -nh:]
     return z, xbc, dt
+
+
+def ssd_grouped(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None, *, kernel: bool = False,
+                chunk_shard: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_chunked`` with B and C in groups: Bm/Cm (B,S,G,N), head h
+    reading group ``h // (H / G)``. One scan a group, over its heads (a
+    kernel launch a group); y and the state are joined over the heads (one
+    group's are its scan's own)."""
+    g = Bm.shape[2]
+    per = x.shape[2] // g
+    ys, states = [], []
+    for i in range(g):
+        heads = slice(i * per, (i + 1) * per)
+        y, h = ssd_chunked(x[:, :, heads], dt[:, :, heads], A[heads], Bm[:, :, i], Cm[:, :, i],
+                           chunk, None if h0 is None else h0[:, heads], kernel=kernel,
+                           chunk_shard=chunk_shard)
+        ys.append(y)
+        states.append(h)
+    if g == 1:
+        return ys[0], states[0]
+    return torch.cat(ys, dim=2), torch.cat(states, dim=1)
+
+
+def gated_group_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, groups: int,
+                     eps: float, kernel: bool) -> torch.Tensor:
+    """The gated RMSNorm of ``y * silu(z)``, times ``scale``. One group
+    (mamba2-130m, the simplified hybrid) is normalised whole with the weight
+    inside the norm, as the JAX reference does; more (Zamba2) are each
+    normalised apart and rounded to y's dtype before the weight, as
+    modeling_zamba2 does."""
+    g = y * F.silu(z)
+    if groups == 1:
+        return rms_norm(g, scale, eps, kernel=kernel)
+    b, s, di = y.shape
+    ones = torch.ones(di // groups, device=y.device, dtype=y.dtype)
+    return rms_norm(g.reshape(b, s, groups, di // groups), ones, eps,
+                    kernel=kernel).reshape(b, s, di) * scale
 
 
 def _intra_chunk_plain(xdt, cum, bc, cc, chunk_shard: bool = False):
@@ -185,17 +238,22 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = False,
                 ssm_state: Optional[torch.Tensor] = None,
                 conv_state: Optional[torch.Tensor] = None,
-                single_step: bool = False, chunk_shard: bool = False
+                single_step: bool = False, chunk_shard: bool = False,
+                layer: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Mamba-2 block. x: (B,S,d) -> (y, ssm_state, conv_state).
 
-    ``single_step=True`` runs the O(1) decode recurrence (S must be 1).
-    ``kernel`` routes ``ssd_chunked`` and the gated norm through the
-    kernel-backed ops. ``chunk_shard`` keeps the block sequence-sharded over
-    the model axis. The states are returned in x's dtype.
+    ``single_step=True`` runs the O(1) decode recurrence (S must be 1) in
+    f32 and returns its ssm state in f32, for the caller to store (and so
+    round) once; otherwise the states are returned in x's dtype. ``kernel``
+    routes the scan and the gated norm through the kernel-backed ops.
+    ``chunk_shard`` keeps the block sequence-sharded over the model axis. The
+    scan (or the recurrence's step) is recorded as the ``mamba.ssd`` span,
+    with ``layer`` and the groups.
     """
     b, s, _ = x.shape
     di, n, nh, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    groups = cfg.ssm_groups
 
     proj = gather_sequence(x) @ gathered(params.in_proj)
     if chunk_shard and not single_step:
@@ -203,32 +261,36 @@ def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = Fals
     else:
         proj = constrain(proj, DATA, None, MODEL)
     z, xbc, dt_raw = _split_proj(proj, cfg)
-    xbc, conv_state = _causal_conv(xbc, params.conv_w, conv_state)
+    xbc, conv_state = _causal_conv(xbc, params.conv_w, conv_state,
+                                   params.conv_b if cfg.ssm_conv_bias else None)
     xs = xbc[..., :di].reshape(b, s, nh, p)
-    Bm = xbc[..., di:di + n]
-    Cm = xbc[..., di + n:]
+    Bm = xbc[..., di:di + groups * n].unflatten(-1, (groups, n))
+    Cm = xbc[..., di + groups * n:].unflatten(-1, (groups, n))
     # On a mesh on the local shard: DTensor has no rule of its own for
     # softplus's backward.
     dt = on_local_shard(F.softplus, dt_raw.float() + params.dt_bias.float(), (), "softplus")
+    if cfg.ssm_dt_min > 0:
+        dt = torch.clamp(dt, min=cfg.ssm_dt_min)
     A = -torch.exp(params.A_log.float())
 
-    if single_step:
-        dA = torch.exp(dt[:, 0] * A)  # (B,H)
-        h_prev = (torch.zeros((b, nh, n, p), dtype=torch.float32, device=x.device)
-                  if ssm_state is None else ssm_state.float())
-        xdt = xs[:, 0].float() * dt[:, 0][..., None]  # (B,H,P)
-        h_new = dA[..., None, None] * h_prev + einsum(
-            "bn,bhp->bhnp", Bm[:, 0].float(), xdt)
-        y = einsum("bn,bhnp->bhp", Cm[:, 0].float(), h_new)
-        y = y[:, None].to(x.dtype)  # (B,1,H,P)
-        ssm_state = h_new.to(x.dtype)
-    else:
-        y, ssm_state = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, ssm_state,
-                                   kernel=kernel, chunk_shard=chunk_shard)
+    with span("mamba.ssd", layer=layer, groups=groups):
+        if single_step:
+            # h = exp(dt A) h + dt B x^T and y = C h in f32, head h reading its
+            # group's B and C; h is returned in f32, so that the caller's
+            # store into the cache rounds it once.
+            bh, ch = (t[:, 0].float().repeat_interleave(nh // groups, dim=1) for t in (Bm, Cm))
+            xdt = xs[:, 0].float() * dt[:, 0][..., None]  # (B,H,P)
+            h = einsum("bhn,bhp->bhnp", bh, xdt)  # (B,H,N,P)
+            if ssm_state is not None:
+                h.addcmul_(ssm_state, torch.exp(dt[:, 0] * A)[..., None, None])
+            y = einsum("bhn,bhnp->bhp", ch, h)[:, None].to(x.dtype)  # (B,1,H,P)
+            ssm_state = h
+        else:
+            y, ssm_state = ssd_grouped(xs, dt, A, Bm, Cm, cfg.ssm_chunk, ssm_state,
+                                       kernel=kernel, chunk_shard=chunk_shard)
 
     y = y + params.D.to(x.dtype)[None, None, :, None] * xs
-    y = y.reshape(b, s, di)
-    y = rms_norm(y * F.silu(z), params.ssm_norm, cfg.norm_eps, kernel=kernel)
+    y = gated_group_norm(y.reshape(b, s, di), z, params.ssm_norm, groups, cfg.norm_eps, kernel)
     # The sequence whole before the rows flatten (it is sharded under
     # ``chunk_shard``).
     y = gather_sequence(y) @ gathered(params.out_proj)

@@ -8,7 +8,11 @@ the functions that drive them: ``forward_hidden``, ``forward_train``,
           optional leading dense-FFN layers (DeepSeek layer 0)
   ssm     Mamba-2 SSD stack (mamba2-130m)
   hybrid  Mamba-2 backbone + one shared attention block every k layers
-          (zamba2), on concat(x, embed0) as in Zamba
+          (zamba2), on concat(x, embed0) as in Zamba; with
+          ``hybrid_layer_ids`` the published Zamba2 layout instead (a
+          Mamba-2 layer each, the listed ones first running one of
+          ``hybrid_blocks`` shared blocks, whose output enters the Mamba
+          layer's input through a linear of the layer's own)
   audio   Whisper-style encoder/decoder over stub frame embeddings, with
           sinusoidal positions and no rope
   vlm     dense backbone with stub patch embeddings prepended (phi3-vision)
@@ -71,7 +75,7 @@ def _attn_shapes(cfg: ModelConfig, d_in: int):
 
 
 def _mlp_shapes(cfg: ModelConfig, d_in: int):
-    width = 2 * cfg.d_ff if cfg.act == "swiglu" else cfg.d_ff
+    width = 2 * cfg.d_ff if cfg.act in ("swiglu", "geglu") else cfg.d_ff
     return {"wi": (d_in, width), "wo": (cfg.d_ff, cfg.d_model)}
 
 
@@ -110,6 +114,37 @@ class MambaLayer(nn.Module):
         self.norm1 = _ones(cfg.d_model, kw)
 
 
+class HybridLayer(MambaLayer):
+    """A Mamba-2 layer of the published Zamba2 layout that first runs a
+    shared block: mamba, norm1, and its own linear (d, d), through which the
+    block's output enters the Mamba input, and the rank-r adapter of the
+    block's MLP at this invocation, adapter_in (d, r) and adapter_out
+    (r, 2 * d_ff)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
+        super().__init__(cfg, generator=generator, device=device, dtype=dtype)
+        d, r = cfg.d_model, cfg.adapter_rank
+        for name, shape in (("linear", (d, d)), ("adapter_in", (d, r)),
+                            ("adapter_out", (r, 2 * cfg.d_ff))):
+            setattr(self, name, nn.Parameter(
+                torch.randn(shape, generator=generator, device=device, dtype=dtype) * INIT_STD,
+                requires_grad=False))
+
+
+class SharedBlock(nn.Module):
+    """A shared block of the published Zamba2 layout: attn (wq, wk, wv on
+    2 * d_model inputs, wo), mlp (wi (d, 2 * d_ff), wo), norm1 (2 * d_model)
+    and norm2 (d_model)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.attn = ParamGroup(_attn_shapes(cfg, 2 * cfg.d_model), **kw)
+        self.mlp = ParamGroup(_mlp_shapes(cfg, cfg.d_model), **kw)
+        self.norm1 = _ones(2 * cfg.d_model, kw)
+        self.norm2 = _ones(cfg.d_model, kw)
+
+
 class MoELayer(nn.Module):
     """One pre-norm MoE layer: attn (wq, wk, wv, wo), moe (``MoE``), norm1,
     norm2."""
@@ -134,7 +169,9 @@ class Transformer(nn.Module):
     ``enc_final_norm`` follows), a ``MambaLayer`` per layer (ssm;
     hybrid, group g's layer e at index g * every + e) or a ``MoELayer`` per
     MoE layer (moe, after the ``moe_first_dense`` ``DenseBlock``s of
-    ``dense_layers``). Initialized N(0, 0.02)
+    ``dense_layers``); the published hybrid layout holds a ``MambaLayer``
+    per layer, a ``HybridLayer`` at each of ``hybrid_layer_ids``, and its
+    ``SharedBlock``s in ``blocks``. Initialized N(0, 0.02)
     from ``generator`` (seed 0 on ``device`` when None), norms and the SSM's
     D at one, A_log and dt_bias at zero."""
 
@@ -173,6 +210,12 @@ class Transformer(nn.Module):
                                               for _ in range(cfg.moe_first_dense))
             self.layers = nn.ModuleList(MoELayer(cfg, **kw) for _ in
                                         range(cfg.n_layers - cfg.moe_first_dense))
+        elif cfg.published_hybrid:
+            ids = set(cfg.hybrid_layer_ids)
+            self.layers = nn.ModuleList((HybridLayer if i in ids else MambaLayer)(cfg, **kw)
+                                        for i in range(cfg.n_layers))
+            self.blocks = nn.ModuleList(SharedBlock(cfg, **kw)
+                                        for _ in range(cfg.hybrid_blocks))
         else:  # hybrid
             groups = _n_groups(cfg)
             self.layers = nn.ModuleList(MambaLayer(cfg, **kw) for _ in
@@ -257,14 +300,78 @@ def moe_layer_block(lp: MoELayer, x, cfg, run, positions, kv_cache=None,
 
 
 def mamba_layer(lp: MambaLayer, x, cfg, run, ssm_state=None, conv_state=None,
-                single_step: bool = False):
-    """One pre-norm Mamba-2 layer: (x + mamba(norm1(x)), ssm, conv)."""
+                single_step: bool = False, shared=None, layer=None):
+    """One pre-norm Mamba-2 layer: (x + mamba(norm1(x)), ssm, conv), or with
+    ``shared`` (a shared block's output through the layer's linear, the
+    published hybrid layout) (x + mamba(norm1(x + shared)), ssm, conv).
+    Recorded as the ``mamba`` span, with ``layer``."""
     kernel = uses_kernels(run)
-    y, ssm, conv = mamba_block(lp.mamba, rms_norm(x, lp.norm1, cfg.norm_eps, kernel=kernel),
-                               cfg, kernel=kernel, ssm_state=ssm_state,
-                               conv_state=conv_state, single_step=single_step,
-                               chunk_shard=run.ssd_chunk_shard)
+    with span("mamba", layer=layer):
+        h = x if shared is None else x + shared
+        y, ssm, conv = mamba_block(lp.mamba, rms_norm(h, lp.norm1, cfg.norm_eps, kernel=kernel),
+                                   cfg, kernel=kernel, ssm_state=ssm_state,
+                                   conv_state=conv_state, single_step=single_step,
+                                   chunk_shard=run.ssd_chunk_shard, layer=layer)
     return _residual(x, y, run), ssm, conv
+
+
+def shared_block(params: Transformer, lp: HybridLayer, x, x0, cfg, run, positions,
+                 invocation: int, layer: int, kv_cache=None, cache_pos=None):
+    """The published Zamba2 layout's shared block at its ``invocation``-th
+    use (block ``invocation % hybrid_blocks``), before Mamba layer
+    ``layer``: a = attn(norm1(concat(x, x0))), then the gated MLP on
+    norm2(a) with the layer's adapter, through the layer's linear. Returns
+    (that output, (K, V)); recorded as the ``shared`` span, with the block,
+    the invocation and the layer."""
+    kernel = uses_kernels(run)
+    b = invocation % cfg.hybrid_blocks
+    blk = params.blocks[b]
+    with span("shared", block=b, invocation=invocation, layer=layer):
+        xin = torch.cat([x, x0], dim=-1)
+        a, kv = attention_block(blk.attn, rms_norm(xin, blk.norm1, cfg.norm_eps, kernel=kernel),
+                                cfg, run, positions, kv_cache=kv_cache, cache_pos=cache_pos)
+        m = mlp_block(blk.mlp, rms_norm(a, blk.norm2, cfg.norm_eps, kernel=kernel), cfg.act,
+                      adapter=(gathered(lp.adapter_in), gathered(lp.adapter_out)))
+        return m @ gathered(lp.linear), kv
+
+
+def _invocations(cfg: ModelConfig) -> Dict[int, int]:
+    """Layer index -> its shared block's invocation (published hybrid)."""
+    return {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
+
+
+def _hybrid_stack(params: Transformer, cfg: ModelConfig, run: RunConfig, x, positions,
+                  cache: Optional[Cache] = None):
+    """The published hybrid layout's layers over the embeddings x (B,S,d).
+    With ``cache`` (plain, ``init_cache``'s) each invocation's K/V and each
+    Mamba layer's states are written into it as they are made and dropped
+    at once, so that prefill never holds them twice (at Zamba2-7B's 64 x
+    1,024 prompts the K/V alone are 22.8 GiB)."""
+    x0, calls = x, _invocations(cfg)
+    if cache is not None:
+        ssm_l, conv_l = _layer_states(cache)
+    for i, lp in enumerate(params.layers):
+        t = None
+        if i in calls:
+            j = calls[i]
+            t, kv = shared_block(params, lp, x, x0, cfg, run, positions, j, i)
+            if cache is not None:
+                for name, made in zip(("k", "v"), kv):
+                    write_positions(cache[name][j], 0, made)
+            del kv
+        x, ssm, conv = mamba_layer(lp, x, cfg, run, shared=t, layer=i)
+        if cache is not None:
+            ssm_l[i] = ssm
+            conv_l[i] = conv
+    return x
+
+
+def _plain_only(cfg: ModelConfig, params: Transformer, what: str) -> None:
+    """The published hybrid layout serves on a plain cache only: it has no
+    training forward and no mesh path yet."""
+    if cfg.published_hybrid and (what == "training" or is_distributed(params.embed)):
+        raise NotImplementedError(f"the published hybrid layout has no {what} path "
+                                  f"(it serves on one device)")
 
 
 def hybrid_shared_block(params: Transformer, x, x0, inv_proj, cfg, run, positions,
@@ -406,6 +513,7 @@ def forward_train(params: Transformer, cfg: ModelConfig, run: RunConfig,
     group, so its gradient sums over the groups; an audio model's encoder
     output likewise enters every decoder layer). The logits are left to the
     loss, which may chunk over the sequence."""
+    _plain_only(cfg, params, "training")
     x, positions = _embed(params, cfg, run, tokens, frontend)
     extras: Dict[str, Any] = {}
 
@@ -497,6 +605,11 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,
         for lp in params.layers:
             x, ssm, conv = mamba_layer(lp, x, cfg, run)
             states.append((ssm, conv))
+    elif cfg.published_hybrid:
+        if collect_kv:  # its prefill writes the cache as it goes (_prefill_hybrid)
+            raise NotImplementedError("the published hybrid layout collects no K/V")
+        _plain_only(cfg, params, "mesh")
+        x = _hybrid_stack(params, cfg, run, x, positions)
     else:  # hybrid
         x0 = x
         every = cfg.hybrid_attn_every
@@ -534,7 +647,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
       dk/dv (first_dense, B, max_len, K, D) for the leading dense ones.
     * ssm: ssm (L, B, H, N, P) and conv (L, B, K-1, C), C = d_inner + 2N.
     * hybrid: ssm (G, every, B, H, N, P), conv (G, every, B, K-1, C) and a
-      ring buffer k/v (G, B, min(window, max_len), K, D) per invocation.
+      ring buffer k/v (G, B, min(window, max_len), K, D) per invocation;
+      the published layout ssm (L, B, H, N, P), conv (L, B, K-1, C), C =
+      d_inner + 2 * groups * N, and k/v (J, B, max_len, K, D), one per
+      shared-block invocation (its window is 0).
     """
     _check_family(cfg)
     dev = resolve_device(device)
@@ -548,11 +664,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             if layers:
                 shapes[k] = shapes[v] = (layers, batch, length, cfg.n_kv_heads, cfg.d_head)
     else:
-        lead = ((cfg.n_layers,) if cfg.family == "ssm"
+        lead = ((cfg.n_layers,) if cfg.family == "ssm" or cfg.published_hybrid
                 else (_n_groups(cfg), cfg.hybrid_attn_every))
         shapes["ssm"] = (*lead, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
-        shapes["conv"] = (*lead, batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
-        if cfg.family == "hybrid":
+        shapes["conv"] = (*lead, batch, cfg.ssm_conv - 1,
+                          cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state)
+        if cfg.published_hybrid:
+            if cfg.window:
+                raise ValueError("the published hybrid layout's cache has no window")
+            shapes["k"] = shapes["v"] = (len(cfg.hybrid_layer_ids), batch, max_len,
+                                         cfg.n_kv_heads, cfg.d_head)
+        elif cfg.family == "hybrid":
             wlen = min(cfg.window or max_len, max_len)
             shapes["k"] = shapes["v"] = (_n_groups(cfg), batch, wlen, cfg.n_kv_heads,
                                          cfg.d_head)
@@ -602,6 +724,9 @@ def prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
 def _prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
              tokens: torch.Tensor, max_len: Optional[int],
              frontend: Optional[torch.Tensor]):
+    if cfg.published_hybrid:
+        _plain_only(cfg, params, "mesh")
+        return _prefill_hybrid(params, cfg, run, tokens, max_len)
     hidden, extras = forward_hidden(params, cfg, run, tokens, frontend, collect_kv=True)
     logits_last = lm_logits(params, cfg, hidden[:, -1:])
     b, s = hidden.shape[:2]
@@ -629,6 +754,21 @@ def _prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
     return logits_last, cache
 
 
+def _prefill_hybrid(params: Transformer, cfg: ModelConfig, run: RunConfig,
+                    tokens: torch.Tensor, max_len: Optional[int]):
+    """``_prefill`` of the published hybrid layout on a plain cache: the
+    cache is allocated first and ``_hybrid_stack`` writes it."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device,
+                       dtype=params.embed.dtype)
+    x, positions = _embed(params, cfg, run, tokens, None)
+    x = _hybrid_stack(params, cfg, run, x, positions, cache)
+    x = rms_norm(x[:, -1:].contiguous(), params.final_norm, cfg.norm_eps,
+                 kernel=uses_kernels(run))
+    cache["pos"] = s
+    return lm_logits(params, cfg, x), cache
+
+
 def _audio_decode_layer(lp: DenseBlock, x, cfg, run, positions, kv_cache, pos,
                         cross_kv, cross_lengths):
     """One audio decoder layer for one new token: self-attention against the
@@ -651,8 +791,10 @@ def _audio_decode_layer(lp: DenseBlock, x, cfg, run, positions, kv_cache, pos,
 def position_on_device(cfg: ModelConfig, like: torch.Tensor) -> bool:
     """Whether ``decode_step`` takes ``cache["pos"]`` as a 0-d tensor on the
     device for ``cfg`` on tensors like ``like`` (its parameters or its
-    cache): a dense or moe step, not on a mesh."""
-    return cfg.family in ("dense", "moe") and not is_distributed(like)
+    cache): a dense or moe step, or one of the published hybrid layout on a
+    cache without a window, not on a mesh."""
+    takes = cfg.family in ("dense", "moe") or (cfg.published_hybrid and not cfg.window)
+    return takes and not is_distributed(like)
 
 
 def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
@@ -672,8 +814,9 @@ def decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
 
     ``pos`` is a Python int, for which a step's graph holds for one
     position; at ``pos = T - 1`` the step attends all T slots, the
-    reference's work, which is where the dry run traces it. A dense or moe
-    step on a plain (not mesh) cache also takes ``pos`` as a 0-d int64
+    reference's work, which is where the dry run traces it. A step for
+    which ``position_on_device`` holds (dense, moe or the published hybrid
+    layout, on a plain, not mesh, cache) also takes ``pos`` as a 0-d int64
     tensor on the cache's device, as the reference traces it: the rope
     positions, the K/V write (clamped alike) and the attended lengths are
     then computed on the device, nothing is read on the host, and one
@@ -695,8 +838,9 @@ def _decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
     pos = cache["pos"]
     on_device = torch.is_tensor(pos)
     if on_device and not position_on_device(cfg, params.embed):
-        raise ValueError(f"a position on the device is taken by a dense or moe step on a "
-                         f"plain cache, not by a {cfg.family} step or a mesh cache")
+        raise ValueError(f"a position on the device is taken by a dense, moe or published "
+                         f"hybrid step on a plain cache, not by a {cfg.family} step or a mesh "
+                         f"cache")
     b = tokens.shape[0]
     x = embed_tokens(params, cfg, tokens)
     positions = pos.expand(b, 1) if on_device else torch.full((b, 1), pos, device=x.device)
@@ -728,14 +872,28 @@ def _decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
     else:
         ssm_l, conv_l = _layer_states(cache)
 
-        def mamba_step(i, x):
+        def mamba_step(i, x, shared=None):
             x, ssm, conv = mamba_layer(params.layers[i], x, cfg, run, ssm_state=ssm_l[i],
-                                       conv_state=conv_l[i], single_step=True)
+                                       conv_state=conv_l[i], single_step=True,
+                                       shared=shared, layer=i)
             ssm_l[i] = ssm
             conv_l[i] = conv
             return x
 
-        if cfg.family == "ssm":
+        if cfg.published_hybrid:
+            _plain_only(cfg, params, "mesh")
+            if not on_device and pos >= cache["k"].shape[2]:
+                raise ValueError(f"KV cache of {cache['k'].shape[2]} positions is full")
+            x0, calls = x, _invocations(cfg)
+            for i, lp in enumerate(params.layers):
+                t = None
+                if i in calls:
+                    j = calls[i]
+                    t, _ = shared_block(params, lp, x, x0, cfg, run, positions, j, i,
+                                        kv_cache=(cache["k"][j], cache["v"][j]),
+                                        cache_pos=pos)
+                x = mamba_step(i, x, t)
+        elif cfg.family == "ssm":
             for i in range(len(params.layers)):
                 x = mamba_step(i, x)
         else:  # hybrid

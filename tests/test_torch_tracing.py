@@ -102,6 +102,48 @@ def test_layer_spans_nest_under_their_pass(recorder, dispatch):
     assert {s.wave for s in got} == {wave.id}
 
 
+def hybrid_engine():
+    """The tiny published Zamba2 layout of ``perfbench/tests/tiny_hybrid.py``
+    (7 layers, shared blocks before layers 2 and 5, B/C in 2 groups)."""
+    spec = importlib.util.spec_from_file_location(
+        "perfbench_tiny_hybrid", ROOT / "perfbench" / "tests" / "tiny_hybrid.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    cfg = ModelConfig(**module.HYBRID)
+    return ServeEngine(cfg, Transformer(cfg, device="cpu"), batch_size=len(PROMPTS),
+                       max_len=32, device="cpu"), module.HYBRID
+
+
+def test_hybrid_spans_nest_and_carry_their_fields(recorder):
+    """Prefill and every (eager) decode step hold a ``mamba`` span a layer,
+    each holding one ``mamba.ssd`` with its layer and groups, and a
+    ``shared`` span before each listed layer with its block, invocation and
+    layer; the shared span closes before its layer's Mamba span opens."""
+    e, m = hybrid_engine()
+    _, got, _ = traced(e)
+    passes = [s for s in got if s.name in ("serve.prefill", "serve.decode")]
+    assert len(passes) == NEW
+    by_id = {s.id: s for s in got}
+    calls = {layer: j for j, layer in enumerate(m["hybrid_layer_ids"])}
+    for p in passes:
+        inner = sorted((s for s in got if s.parent == p.id), key=lambda s: s.start_ns)
+        mamba = [s for s in inner if s.name == "mamba"]
+        shared = [s for s in inner if s.name == "shared"]
+        assert [s.fields for s in mamba] == [{"layer": i} for i in range(m["n_layers"])]
+        assert [s.fields for s in shared] == [
+            {"block": j % m["hybrid_blocks"], "invocation": j, "layer": layer}
+            for layer, j in calls.items()]
+        for sh in shared:
+            after = next(s for s in mamba if s.fields["layer"] == sh.fields["layer"])
+            assert sh.end_ns <= after.start_ns
+        for s in mamba:
+            (ssd,) = [t for t in got if t.parent == s.id and t.name == "mamba.ssd"]
+            assert ssd.fields == {"layer": s.fields["layer"], "groups": m["ssm_groups"]}
+            assert s.start_ns <= ssd.start_ns <= ssd.end_ns <= s.end_ns
+            assert by_id[s.parent] is p and s.timed == p.timed
+    assert recorder.open == []
+
+
 def test_tokens_are_the_same_with_spans_on_and_off(recorder):
     e = engine()
     off = e.generate(PROMPTS, max_new_tokens=NEW)
