@@ -4,7 +4,7 @@ Needs one CUDA device (it exits non-zero without one, and when the rest of
 the repository is not beside it). It
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
-2. builds the four CUDA kernels of ``src/repro_torch/kernels/csrc`` with
+2. builds the five CUDA kernels of ``src/repro_torch/kernels/csrc`` with
    ``nvcc``, in parallel, and prints the build time and register use;
 3. holds each kernel against its plain PyTorch version on the card, in f32
    and bf16, at the serve paths' shapes (RMSNorm at every width the paths
@@ -22,8 +22,11 @@ the repository is not beside it). It
    (yi-9b) and 12 (starcoder2-15b); the SSD step on both of its
    paths, bf16 B/C on the tensor cores and f32 B/C on the CUDA cores, at the
    zamba2-2.7b and mamba2-130m shapes, the bf16 path also against the exact
-   f32 form, and its wrapper at P and N the kernel cuts into pieces) and at
-   ragged shapes, and times the kernel, the
+   f32 form, and its wrapper at P and N the kernel cuts into pieces; the
+   Mamba-2 decode step, which updates its state in place, at mamba2-130m's,
+   zamba2-2.7b's and Zamba2-7B's heads at batch 4, their small test
+   variants' and Zamba2-7B's at its served batch of 64) and at ragged
+   shapes, and times the kernel, the
    plain version and the one PyTorch library call that computes the same
    function, where there is one (timed only; the port never calls it; the
    kernels SDPA launched are named beside attention's times),
@@ -60,7 +63,7 @@ the repository is not beside it). It
    paper's Table I and the simulator's pins; it prints the wall times of
    the Gauss-Seidel kernels at unroll 4 and of the 512-instruction kernels
    on both sides, with the card's launches, copies and device ms per
-   analysis. The analyzer launches none of the four kernels of phase 3;
+   analysis. The analyzer launches none of the five kernels of phase 3;
 6. runs waves through ``analyze_kernels(use_cache=False)`` on the card and
    on the host, and the per-kernel loop on the host: W8, W64 and W256
    (benchmarks/run.py's ``batched_analysis`` waves on tx2), R256 on each
@@ -198,7 +201,9 @@ WHISPER_CONTEXT = 448  # whisper-base's decoder context: its training sequence
 # path, and the kernel launches of one prefill (K1 at every norm, K2 at
 # every attention layer or shared-block invocation, K4 at every Mamba
 # layer); a decode step launches as many K1, K3 where the prefill launched
-# K2, and no K4, unless ``per_step`` says otherwise. ``frontend`` models
+# K2, no K4 and the decode step's kernel (``ssm_step``) where the prefill
+# launched K4 (these families' B and C hold one group, so a layer's scan is
+# one K4), unless ``per_step`` says otherwise. ``frontend`` models
 # take a seeded frontend (B, frontend_len, d_model), N(0, 0.02) in bf16.
 # ``bf16_decode_tol`` bounds the bf16 logits of a decode step against
 # prefill's (absolute). tinyllama keeps the 0.1 of tests/test_models.py.
@@ -243,7 +248,7 @@ PHASES = (
          per_prefill={"fused_rmsnorm": 2 * 6 + 1 + 3 * 6 + 1, "flash_attention": 6 + 2 * 6,
                       "ssd_chunk_dual": 0},
          per_step={"fused_rmsnorm": 3 * 6 + 1, "flash_attention": 0, "flash_decode": 2 * 6,
-                   "ssd_chunk_dual": 0}),
+                   "ssd_chunk_dual": 0, "ssm_step": 0}),
     # 3.82 B parameters, 7.64 GB in bf16. The engine sizes the cache for
     # prompt + new tokens as the reference's does, which leaves out the 576
     # patches: the 1088 slots of prefill hold, and every decode step writes
@@ -500,7 +505,7 @@ def compare(name, shape, out, want, tol=None):
 
 def check_kernels(port):
     ops, F = port["ops"], torch.nn.functional
-    fa, da, rms, ssd = port["fa"], port["da"], port["rms"], port["ssd"]
+    fa, da, rms, ssd, ssm = port["fa"], port["da"], port["rms"], port["ssd"], port["ssm"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rnd(*shape, dtype):
@@ -777,6 +782,46 @@ def check_kernels(port):
                 nbytes=nbytes(*args, y, states), peak=peak))
     results["ssd_chunk_dual"] = dict(checks=checks, timings=timings)
 
+    # The Mamba-2 decode step at the families' heads (mamba2-130m H 24, N
+    # 128; zamba2-2.7b H 80, N 64; Zamba2-7B H 112, N 64 in 2 groups; P 64)
+    # at batch 4, at their small test variants' H 8, N 16, P 32, and
+    # Zamba2-7B's at its served batch of 64; x, B and C strided views of one
+    # conv output, as the model passes them. Each path updates its own copy
+    # of the state in place. Timed in bf16 at Zamba2-7B's two batches: the
+    # state read and written once, the other inputs read and y written once
+    # (there is no library call for the step).
+    def ssm_inputs(b, h, n, g, dtype, p=64):
+        conv = (rnd(b, h * p + 2 * g * n, dtype=torch.float32) * 0.5).to(dtype)
+        return (rnd(b, h, n, p, dtype=dtype), conv[:, :h * p].unflatten(-1, (h, p)),
+                F.softplus(rnd(b, h, dtype=torch.float32) - 1.0),
+                -torch.exp(rnd(h, dtype=torch.float32) * 0.5),
+                conv[:, h * p:h * p + g * n].unflatten(-1, (g, n)),
+                conv[:, h * p + g * n:].unflatten(-1, (g, n)))
+
+    checks = []
+    ssm_shapes = ((BATCH, 24, 128, 1, 64), (BATCH, 80, 64, 1, 64), (BATCH, 112, 64, 2, 64),
+                  (64, 112, 64, 2, 64), (BATCH, 8, 16, 1, 32))
+    for b, h, n, g, p in ssm_shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            state, *rest = ssm_inputs(b, h, n, g, dtype, p)
+            want_state = state.clone()
+            want_y = ssm.ssm_step_plain(want_state, *rest)
+            y = ops.ssm_step(state, *rest)
+            checks.append(compare("ssm_step", [b, h, n, g, p, "y"], y, want_y))
+            checks.append(compare("ssm_step", [b, h, n, g, p, "state"], state, want_state))
+    timings = []
+    for b, h, n, g in ((64, 112, 64, 2), (BATCH, 112, 64, 2)):
+        state, *rest = ssm_inputs(b, h, n, g, torch.bfloat16)
+        plain_state = state.clone()
+        y = ops.ssm_step(state, *rest)
+        timings.append(timing(
+            [b, h, n, g, "bfloat16"], lambda: ops.ssm_step(state, *rest),
+            lambda: ssm.ssm_step_plain(plain_state, *rest), None,
+            flops=4 * b * h * n * 64, nbytes=2 * nbytes(state) + nbytes(*rest, y),
+            peak=PEAK_F32_FLOPS))
+        timings[-1]["host_us"] = host_us(lambda: ops.ssm_step(state, *rest))
+    results["ssm_step"] = dict(checks=checks, timings=timings)
+
     for name, r in results.items():
         log(json.dumps({"kernel": name, **r}))
     return results
@@ -806,9 +851,10 @@ def logits_close(name, got, want, dtype, tol=None):
 def expected_launches(per_prefill, per_step=None):
     """Launches of one prefill and of one decode step, from a phase's
     per-prefill counts (and per-step ones, where they do not follow)."""
-    prefill = dict(per_prefill, flash_decode=0)
+    prefill = dict(per_prefill, flash_decode=0, ssm_step=0)
     step = per_step or {"fused_rmsnorm": per_prefill["fused_rmsnorm"], "flash_attention": 0,
-                        "flash_decode": per_prefill["flash_attention"], "ssd_chunk_dual": 0}
+                        "flash_decode": per_prefill["flash_attention"], "ssd_chunk_dual": 0,
+                        "ssm_step": per_prefill["ssd_chunk_dual"]}
     return prefill, step
 
 
@@ -869,21 +915,23 @@ def serve(port, device_name, phase):
     require(launches == expect, "kernel launches match the path's structure")
     # A replayed decode step adds the counts its capture counted, where an
     # eager one counts each launch as it runs. So where the engine replayed
-    # (it holds a graph), a short wave (prefill and two replays) runs under
-    # the profiler, three times: its counts must follow the path's structure,
-    # and K3's, which only the replays launch here, must be the K3 kernels
+    # (it holds a graph), or decoded through the decode step's kernel, a
+    # short wave (prefill and two steps) runs under the profiler, three
+    # times: its counts must follow the path's structure, and K3's and the
+    # decode step kernel's, which only the steps launch, must be the kernels
     # the traces hold. K1's and K2's traced counts are printed beside: a
     # trace loses a prefill K1 or K2 record now and then.
-    if engine._graph.graph is not None:
+    if engine._graph.graph is not None or per_step["ssm_step"]:
         in_trace, wave_launches = traced_launches(
             ops, lambda: engine.generate(prompts[:BATCH], max_new_tokens=3,
                                          frontend=frontend))
         one_wave = {k: per_prefill[k] + 2 * per_step[k] for k in per_prefill}
         log(json.dumps({"model": arch, "traced_wave": wave_launches, "in_trace": in_trace,
                         "expected": one_wave}))
-        require(wave_launches == one_wave and in_trace["flash_decode"] == one_wave["flash_decode"],
-                "a traced wave's launch counts follow the path's structure, and its K3 "
-                "kernels match them")
+        require(wave_launches == one_wave and in_trace["flash_decode"] == one_wave["flash_decode"]
+                and in_trace["ssm_step"] == one_wave["ssm_step"],
+                "a traced wave's launch counts follow the path's structure, and its K3 and "
+                "decode step kernels match them")
 
     # Per-phase times of one wave, on the same prompts.
     run = engine.run
@@ -992,7 +1040,8 @@ def serve(port, device_name, phase):
 # 512) and 32 new tokens. A wave launches per prefill K1 at each Mamba
 # layer's two norms (its input and the gated norm), each invocation's two
 # and the final norm; K2 at each invocation; K4 at each layer and group;
-# per decode step K1 alike and K3 at each invocation.
+# per decode step K1 alike, K3 at each invocation and the decode step's
+# kernel at each layer (both groups in one launch).
 ZAMBA2 = dict(config="perfbench/configs/zamba2-7b.json", seed=2 ** 31 + 2901,
               mix={"driver": "serve_waves", "batch_size": 8, "prompt_median": 200,
                    "prompt_sigma": 0.6, "prompt_min": 32, "prompt_max": 512, "new_tokens": 32,
@@ -1052,9 +1101,9 @@ def zamba2_7b(port):
     calls, hyb, groups = m["n_layers"], len(m["hybrid_layer_ids"]), m["ssm_groups"]
     norms = 2 * calls + 2 * hyb + 1
     per_prefill = {"fused_rmsnorm": norms, "flash_attention": hyb, "flash_decode": 0,
-                   "ssd_chunk_dual": calls * groups}
+                   "ssd_chunk_dual": calls * groups, "ssm_step": 0}
     per_step = {"fused_rmsnorm": norms, "flash_attention": 0, "flash_decode": hyb,
-                "ssd_chunk_dual": 0}
+                "ssd_chunk_dual": 0, "ssm_step": calls}
     t0 = time.perf_counter()
     cell = serve_waves.Cell(config, mix, ZAMBA2["seed"], torch.device("cuda"))
     cell.setup()  # builds the model from the seed and serves a warm-up wave
@@ -1081,10 +1130,10 @@ def zamba2_7b(port):
     one_wave = {k: per_prefill[k] + 2 * per_step[k] for k in per_prefill}
     log(json.dumps({"model": m["name"], "traced_wave": wave_launches, "in_trace": in_trace,
                     "expected": one_wave}))
-    require(wave_launches == one_wave and in_trace["flash_decode"] == one_wave["flash_decode"]
-            and in_trace["ssd_chunk_dual"] == one_wave["ssd_chunk_dual"],
-            "zamba2-7b: a traced wave's counts follow the path's structure, and its K3 and K4 "
-            "kernels match them")
+    require(wave_launches == one_wave and all(in_trace[k] == one_wave[k] for k in
+                                              ("flash_decode", "ssd_chunk_dual", "ssm_step")),
+            "zamba2-7b: a traced wave's counts follow the path's structure, and its K3, K4 and "
+            "decode step kernels match them")
     cell.release()
     t0 = time.perf_counter()
     got, _ = cell.readings([record])
@@ -2235,7 +2284,7 @@ def step_launches(cfg, passes):
     Mamba layer's norm1 and gated norm) and of every shared-block
     invocation and at 3 of an audio decoder layer, K2 at every attention
     layer or invocation and twice in an audio decoder layer (self and
-    cross), K4 at every Mamba layer."""
+    cross), K4 at every Mamba layer; no decode step."""
     L = cfg.n_layers
     groups = L // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
     attention = {"ssm": 0, "hybrid": groups}.get(cfg.family, L)
@@ -2246,7 +2295,7 @@ def step_launches(cfg, passes):
         norms, attention, outside = 2 * E + 3 * L, E + 2 * L, 2
     return {"fused_rmsnorm": passes * norms + outside,
             "flash_attention": passes * attention, "flash_decode": 0,
-            "ssd_chunk_dual": passes * mamba}
+            "ssd_chunk_dual": passes * mamba, "ssm_step": 0}
 
 
 def train_batch(data, cfg, step, seq=None):
@@ -3038,6 +3087,7 @@ def port_modules():
         "fa": importlib.import_module("repro_torch.kernels.flash_attention"),
         "da": importlib.import_module("repro_torch.kernels.decode_attention"),
         "ssd": importlib.import_module("repro_torch.kernels.ssd_scan"),
+        "ssm": importlib.import_module("repro_torch.kernels.ssm_step"),
         "configs": importlib.import_module("repro_torch.configs"),
         "models": importlib.import_module("repro_torch.models"),
         "serving": importlib.import_module("repro_torch.serving"),
@@ -3150,6 +3200,7 @@ def main() -> int:
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:79"),
         "flash_decode": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:63"),
         "ssd_chunk_dual": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:57"),
+        "ssm_step": ("ssm_step.cu", "none: the Mamba-2 decode step's plain operations"),
     }
     rows = []
     for kname, (src, replaces) in sources.items():

@@ -18,6 +18,18 @@ traces ``flash_attention_plain``, a tiled Python loop, nor
 terms (autograd would give ``lo`` a zero derivative): SSDChunkDual's
 backward is the gradient of the exact f32 function.
 
+``ssm_step``, the Mamba-2 decode step's state update and readout, writes
+its state in place (the kernel, ``csrc/ssm_step.cu``, replaces no TPU
+kernel): it was added because the largest share of a served Mamba-2
+decode step's device time went to four plain PyTorch kernels that moved
+about six times the state's bytes. It is bound by bytes, so it reads the
+bf16 or f32 state once in 16-byte loads, all in flight before any is used,
+keeps the update in f32 registers and writes the state back where it
+lies, rounded once; as it updates the cache's state in place, the caller
+stores nothing. It has no gradient (decode runs under inference mode) and
+no DTensor kernel path: a mesh's state, on the CPU, takes the plain
+version, which updates it in place alike.
+
 A ``DTensor`` (the inputs of a model on a mesh) runs on its local shard: the
 wrapper takes ``to_local()``, calls the kernel (or its Function, whose
 backward then runs on the local shards too) and wraps the result with
@@ -46,9 +58,10 @@ from repro_torch.kernels.rmsnorm import (rmsnorm_rows_backward, rmsnorm_rows_cud
                                          rmsnorm_rows_plain)
 from repro_torch.kernels.ssd_scan import (ssd_intra_chunk_backward, ssd_intra_chunk_cuda,
                                           ssd_intra_chunk_plain, tma_ready as ssd_tma_ready)
+from repro_torch.kernels.ssm_step import ssm_step_cuda, ssm_step_plain
 
 LAUNCHES: Dict[str, int] = {"fused_rmsnorm": 0, "flash_attention": 0,
-                            "flash_decode": 0, "ssd_chunk_dual": 0}
+                            "flash_decode": 0, "ssd_chunk_dual": 0, "ssm_step": 0}
 
 
 # The CUDA symbols whose launches each wrapper counts, for holding
@@ -60,6 +73,7 @@ KERNELS: Dict[str, Tuple[str, ...]] = {
     "flash_attention": ("flash_attention_bf16_kernel", "flash_attention_f32_kernel"),
     "flash_decode": ("decode_cluster_kernel", "decode_split_kernel"),
     "ssd_chunk_dual": ("ssd_bf16_kernel", "ssd_f32_kernel"),
+    "ssm_step": ("ssm_step_kernel",),
 }
 
 
@@ -311,3 +325,18 @@ def ssd_chunk_dual(xdt: torch.Tensor, cum: torch.Tensor, bm: torch.Tensor,
     if _needs_grad(xdt, cum, bm, cm):
         return SSDChunkDual.apply(xdt, cum, bm, cm)
     return _ssd(xdt, cum, bm, cm)
+
+
+def ssm_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             bm: torch.Tensor, cm: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 decode step, in place: state (B,H,N,P) <- exp(dt A) state +
+    (dt x) B^T in f32, rounded once to the state's dtype; returns y = C
+    state (B,H,P) in x's dtype, read from the f32 state. x (B,H,P), dt
+    (B,H) and A (H,) in f32, B/C (B,G,N), head h reading group h // (H/G)."""
+    if not state.is_cuda:
+        return ssm_step_plain(state, x, dt, A, bm, cm)
+    if _is_dtensor(state, x, dt, A, bm, cm):
+        raise NotImplementedError("ssm_step has no kernel path for DTensors on the card")
+    y = ssm_step_cuda(state, x, dt, A, bm, cm)
+    LAUNCHES["ssm_step"] += 1
+    return y

@@ -6,11 +6,13 @@ chunks of Q positions plus a sequential recurrence over the chunks' states.
 With the kernel-backed run config (``attention_impl="flash"``) the
 intra-chunk part (each chunk's output and state) comes from
 ``ops.ssd_chunk_dual``; the recurrence stays here. ``chunked`` and ``naive``
-keep the reference's plain form. Decode is the O(1)-state recurrence and
-runs no kernel. B and C come in ``cfg.ssm_groups`` G groups (one for
-mamba2-130m and the simplified hybrid), head h reading group ``h // (H /
-G)``: the scan runs once per group on its heads (so the kernel launches once
-a group), decode reads each head's group, and the gated norm normalises each
+keep the reference's plain form. Decode is the O(1)-state recurrence: on
+the kernel path ``ops.ssm_step`` (one launch a layer), else its plain
+version, either updating the cached state in place. B and C come in
+``cfg.ssm_groups`` G groups (one for mamba2-130m and the simplified
+hybrid), head h reading group ``h // (H / G)``: the scan runs once per
+group on its heads (so the kernel launches once a group), decode reads
+each head's group, and the gated norm normalises each
 group of ``d_inner / G`` channels apart (``gated_group_norm``). ``cfg.ssm_conv_bias`` adds the conv's bias before its SiLU and
 ``cfg.ssm_dt_min`` clamps dt below. ``chunk_shard``
 (``RunConfig.ssd_chunk_shard``) and the reference's sharding constraints are
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.distributed import constrain, current_mesh
 from repro_torch.distributed.sharding import einsum, gathered, is_distributed, on_local_shard
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssm_step import ssm_step_plain
 from repro_torch.models.layers import DATA, MODEL, ParamGroup, gather_sequence, rms_norm
 from repro_torch.tracing import span
 
@@ -244,9 +247,11 @@ def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = Fals
     """Mamba-2 block. x: (B,S,d) -> (y, ssm_state, conv_state).
 
     ``single_step=True`` runs the O(1) decode recurrence (S must be 1) in
-    f32 and returns its ssm state in f32, for the caller to store (and so
-    round) once; otherwise the states are returned in x's dtype. ``kernel``
-    routes the scan and the gated norm through the kernel-backed ops.
+    f32, writes the ssm state in place, rounded once to its dtype (a zero
+    state in x's dtype where none is given), and returns that same tensor,
+    so the caller stores nothing; otherwise the states are returned in x's
+    dtype. ``kernel`` routes the scan, the decode step and the gated norm
+    through the kernel-backed ops.
     ``chunk_shard`` keeps the block sequence-sharded over the model axis. The
     scan (or the recurrence's step) is recorded as the ``mamba.ssd`` span,
     with ``layer`` and the groups.
@@ -276,15 +281,11 @@ def mamba_block(params: MambaBlock, x: torch.Tensor, cfg, *, kernel: bool = Fals
     with span("mamba.ssd", layer=layer, groups=groups):
         if single_step:
             # h = exp(dt A) h + dt B x^T and y = C h in f32, head h reading its
-            # group's B and C; h is returned in f32, so that the caller's
-            # store into the cache rounds it once.
-            bh, ch = (t[:, 0].float().repeat_interleave(nh // groups, dim=1) for t in (Bm, Cm))
-            xdt = xs[:, 0].float() * dt[:, 0][..., None]  # (B,H,P)
-            h = einsum("bhn,bhp->bhnp", bh, xdt)  # (B,H,N,P)
-            if ssm_state is not None:
-                h.addcmul_(ssm_state, torch.exp(dt[:, 0] * A)[..., None, None])
-            y = einsum("bhn,bhnp->bhp", ch, h)[:, None].to(x.dtype)  # (B,1,H,P)
-            ssm_state = h
+            # group's B and C; h is stored over the state where it lies.
+            if ssm_state is None:
+                ssm_state = torch.zeros((b, nh, n, p), dtype=x.dtype, device=x.device)
+            step = ops.ssm_step if kernel else ssm_step_plain
+            y = step(ssm_state, xs[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])[:, None]  # (B,1,H,P)
         else:
             y, ssm_state = ssd_grouped(xs, dt, A, Bm, Cm, cfg.ssm_chunk, ssm_state,
                                        kernel=kernel, chunk_shard=chunk_shard)

@@ -873,10 +873,10 @@ def _decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
         ssm_l, conv_l = _layer_states(cache)
 
         def mamba_step(i, x, shared=None):
-            x, ssm, conv = mamba_layer(params.layers[i], x, cfg, run, ssm_state=ssm_l[i],
-                                       conv_state=conv_l[i], single_step=True,
-                                       shared=shared, layer=i)
-            ssm_l[i] = ssm
+            # The step writes the layer's ssm state in the cache in place.
+            x, _, conv = mamba_layer(params.layers[i], x, cfg, run, ssm_state=ssm_l[i],
+                                     conv_state=conv_l[i], single_step=True,
+                                     shared=shared, layer=i)
             conv_l[i] = conv
             return x
 

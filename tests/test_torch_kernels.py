@@ -313,7 +313,7 @@ def test_cpu_tensors_never_count_launches():
     ops.ssd_chunk_dual(tq[:, None].permute(0, 1, 3, 2, 4), tq[:, None, :, :, 0].mT,
                        tq[:, None, :, 0], tq[:, None, :, 0])
     assert ops.LAUNCHES == {"fused_rmsnorm": 0, "flash_attention": 0, "flash_decode": 0,
-                            "ssd_chunk_dual": 0}
+                            "ssd_chunk_dual": 0, "ssm_step": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -207,8 +207,9 @@ def test_mamba_block_prefill_and_single_step_match_reference(kernel):
                                 conv_state=want_conv, single_step=True)
     with torch.inference_mode():
         y, ssm, conv = mamba_block(block, torch.from_numpy(x[:, :-1]), cfg, kernel=kernel)
+        # The step updates the state it is given in place: give it a copy.
         step = mamba_block(block, torch.from_numpy(x[:, -1:]), cfg, kernel=kernel,
-                           ssm_state=ssm, conv_state=conv, single_step=True)
+                           ssm_state=ssm.clone(), conv_state=conv, single_step=True)
     for got, want in zip((y, ssm, conv, *step), (want_y, want_ssm, want_conv, *want_step)):
         assert tuple(got.shape) == want.shape
         _close(got, want, TOL["float32"])
