@@ -340,32 +340,6 @@ def _invocations(cfg: ModelConfig) -> Dict[int, int]:
     return {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
 
 
-def _hybrid_stack(params: Transformer, cfg: ModelConfig, run: RunConfig, x, positions,
-                  cache: Optional[Cache] = None):
-    """The published hybrid layout's layers over the embeddings x (B,S,d).
-    With ``cache`` (plain, ``init_cache``'s) each invocation's K/V and each
-    Mamba layer's states are written into it as they are made and dropped
-    at once, so that prefill never holds them twice (at Zamba2-7B's 64 x
-    1,024 prompts the K/V alone are 22.8 GiB)."""
-    x0, calls = x, _invocations(cfg)
-    if cache is not None:
-        ssm_l, conv_l = _layer_states(cache)
-    for i, lp in enumerate(params.layers):
-        t = None
-        if i in calls:
-            j = calls[i]
-            t, kv = shared_block(params, lp, x, x0, cfg, run, positions, j, i)
-            if cache is not None:
-                for name, made in zip(("k", "v"), kv):
-                    write_positions(cache[name][j], 0, made)
-            del kv
-        x, ssm, conv = mamba_layer(lp, x, cfg, run, shared=t, layer=i)
-        if cache is not None:
-            ssm_l[i] = ssm
-            conv_l[i] = conv
-    return x
-
-
 def _plain_only(cfg: ModelConfig, params: Transformer, what: str) -> None:
     """The published hybrid layout serves on a plain cache only: it has no
     training forward and no mesh path yet."""
@@ -561,74 +535,141 @@ def forward_train(params: Transformer, cfg: ModelConfig, run: RunConfig,
     return x, extras
 
 
+def _walk(params: Transformer, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
+          positions: torch.Tensor, cache: Optional[Cache] = None, pos=None,
+          frontend: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Each family's layers over x (B,S,d) in order, for every serving step.
+
+    * No ``cache``: the layers alone (``forward_hidden``).
+    * ``cache`` without ``pos`` (prefill, into ``init_cache``'s cache):
+      each self-attention layer's or shared-block invocation's (K, V) goes
+      into its cache slots as soon as it is made, its last ``min(T, S)``
+      positions into slots 0.. (T < S only in a hybrid ring buffer, as the
+      reference keeps it), and each Mamba layer's (ssm, conv) likewise; an
+      audio cache also takes each decoder layer's cross K/V. Nothing is
+      held for a later copy.
+    * ``cache`` and ``pos`` (a decode step, S = 1): every layer attends the
+      cache at ``pos`` and writes the new token there (a hybrid ring at slot
+      ``pos % wlen`` over its first ``min(pos + 1, wlen)`` slots); a Mamba
+      layer steps its cached states, the ssm state in place. A full cache
+      raises where ``pos`` is an int, but for the vlm family (the
+      reference's clamp) and a ring.
+
+    Returns (x, extras): without ``pos``, the moe family's mean
+    load-balancing loss ``aux`` and an audio model's encoder output
+    ``enc_out`` (B,F,d), which the decoder cross-attends."""
+    _plain_only(cfg, params, "mesh")
+    decode = pos is not None
+    ring = cfg.family == "hybrid" and not cfg.published_hybrid
+    if (decode and not torch.is_tensor(pos) and "k" in cache and not ring
+            and cfg.family != "vlm" and pos >= cache["k"].shape[2]):
+        raise ValueError(f"KV cache of {cache['k'].shape[2]} positions is full")
+    if cache is not None and "ssm" in cache:
+        ssm_l, conv_l = _layer_states(cache)
+    extras: Dict[str, Any] = {}
+
+    def attend(i, names=("k", "v")):
+        """A block's cache arguments in decode: slot i of ``names``."""
+        if not decode:
+            return {}
+        k, v = cache[names[0]][i], cache[names[1]][i]
+        if not ring:
+            return dict(kv_cache=(k, v), cache_pos=pos)
+        wlen = k.shape[1]
+        return dict(kv_cache=(k, v), cache_pos=pos % wlen, cache_fill=min(pos + 1, wlen))
+
+    def keep(i, x, kv, *rest, names=("k", "v")):
+        """A block's output without its (K, V), which prefill writes into
+        slot i of ``names`` first; the caller holds no reference to it."""
+        if cache is not None and not decode:
+            for name, t in zip(names, kv):
+                s = t.shape[1]
+                write_positions(cache[name][i], 0, t[:, s - min(s, cache[name].shape[2]):])
+        return (x, *rest) if rest else x
+
+    def mamba(i, x, shared=None):
+        lp = params.layers[i]
+        if decode:
+            x, _, conv_l[i] = mamba_layer(lp, x, cfg, run, ssm_state=ssm_l[i],
+                                          conv_state=conv_l[i], single_step=True,
+                                          shared=shared, layer=i)
+            return x
+        x, ssm, conv = mamba_layer(lp, x, cfg, run, shared=shared, layer=i)
+        if cache is not None:
+            ssm_l[i], conv_l[i] = ssm, conv
+        return x
+
+    if cfg.family in ("dense", "vlm", "moe"):
+        moe = cfg.family == "moe"
+        names = ("dk", "dv") if moe else ("k", "v")
+        for i, lp in enumerate(params.dense_layers if moe else params.layers):
+            x = keep(i, *dense_block(lp, x, cfg, run, positions, layer=i, **attend(i, names)),
+                     names=names)
+        if moe:
+            first, auxes = len(params.dense_layers), []
+            for i, lp in enumerate(params.layers):
+                x, aux = keep(i, *moe_layer_block(lp, x, cfg, run, positions, layer=first + i,
+                                                  **attend(i)))
+                auxes.append(aux)
+            if not decode:
+                extras["aux"] = torch.stack(auxes).mean()
+    elif cfg.family == "audio":
+        if decode:
+            x = _with_positions(cfg, x, start=pos)
+            cross_lengths = torch.full((x.shape[0],), cache["cross_k"].shape[2],
+                                       dtype=torch.int32, device=x.device)
+        else:
+            enc = extras["enc_out"] = _encode(params, cfg, run, frontend, x.dtype)
+            x = _with_positions(cfg, x)
+        heads = (cfg.n_kv_heads, cfg.d_head, cfg.n_kv_heads)
+        for i, lp in enumerate(params.layers):
+            if decode:
+                x = _audio_decode_layer(lp, x, cfg, run, positions,
+                                        (cache["k"][i], cache["v"][i]), pos,
+                                        (cache["cross_k"][i], cache["cross_v"][i]),
+                                        cross_lengths)
+                continue
+            x = keep(i, *dense_block(lp, x, cfg, run, positions, use_rope=False, enc_out=enc,
+                                     layer=i))
+            if cache is not None:
+                cache["cross_k"][i] = split_heads(enc @ gathered(lp.cross.cross_wk), *heads)
+                cache["cross_v"][i] = split_heads(enc @ gathered(lp.cross.cross_wv), *heads)
+    elif cfg.family == "ssm":
+        for i in range(len(params.layers)):
+            x = mamba(i, x)
+    elif cfg.published_hybrid:
+        x0, calls = x, _invocations(cfg)
+        for i, lp in enumerate(params.layers):
+            t = None
+            if i in calls:
+                j = calls[i]
+                t = keep(j, *shared_block(params, lp, x, x0, cfg, run, positions, j, i,
+                                          **attend(j)))
+            x = mamba(i, x, t)
+    else:  # hybrid
+        x0, every = x, cfg.hybrid_attn_every
+        for g in range(_n_groups(cfg)):
+            for i in range(g * every, (g + 1) * every):
+                x = mamba(i, x)
+            x = keep(g, *hybrid_shared_block(params, x, x0, params.inv_proj[g], cfg, run,
+                                             positions, **attend(g)))
+    return x, extras
+
+
 def forward_hidden(params: Transformer, cfg: ModelConfig, run: RunConfig,
-                   tokens: torch.Tensor, frontend: Optional[torch.Tensor] = None,
-                   collect_kv: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                   tokens: torch.Tensor,
+                   frontend: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Token (+ frontend) embeddings through the stack.
 
     Returns (hidden (B,S,d), extras); a vlm's frontend (B,F,d) comes before
     the tokens, so its hidden states are (B,F+S,d). For the moe family
     ``extras["aux"]`` is the MoE layers' mean load-balancing loss; for the
     audio family ``extras["enc_out"]`` is the encoder's output (B,F,d), which
-    the decoder cross-attends. With ``collect_kv``, ``extras["kv"]`` lists
-    the (K, V), (B,S,K,D) each and rope'd but for audio, of every
-    self-attention layer (dense, vlm, audio; moe, its MoE layers, and
-    ``extras["dense_kv"]`` its leading dense layers) or shared-block
-    invocation (hybrid), and ``extras["ssm"]`` the (ssm (B,H,N,P), conv
-    (B,K-1,C)) states of every Mamba layer in order.
+    the decoder cross-attends.
     """
-    extras: Dict[str, Any] = {}
     x, positions = _embed(params, cfg, run, tokens, frontend)
-    kvs, states, dense_kvs = [], [], []
-    if cfg.family in ("dense", "vlm"):
-        for i, lp in enumerate(params.layers):
-            x, kv = dense_block(lp, x, cfg, run, positions, layer=i)
-            kvs.append(kv)
-    elif cfg.family == "audio":
-        enc = extras["enc_out"] = _encode(params, cfg, run, frontend, x.dtype)
-        x = _with_positions(cfg, x)
-        for i, lp in enumerate(params.layers):
-            x, kv = dense_block(lp, x, cfg, run, positions, use_rope=False, enc_out=enc,
-                                layer=i)
-            kvs.append(kv)
-    elif cfg.family == "moe":
-        for i, lp in enumerate(params.dense_layers):
-            x, kv = dense_block(lp, x, cfg, run, positions, layer=i)
-            dense_kvs.append(kv)
-        auxes = []
-        for i, lp in enumerate(params.layers, start=len(params.dense_layers)):
-            x, kv, aux = moe_layer_block(lp, x, cfg, run, positions, layer=i)
-            kvs.append(kv)
-            auxes.append(aux)
-        extras["aux"] = torch.stack(auxes).mean()
-    elif cfg.family == "ssm":
-        for lp in params.layers:
-            x, ssm, conv = mamba_layer(lp, x, cfg, run)
-            states.append((ssm, conv))
-    elif cfg.published_hybrid:
-        if collect_kv:  # its prefill writes the cache as it goes (_prefill_hybrid)
-            raise NotImplementedError("the published hybrid layout collects no K/V")
-        _plain_only(cfg, params, "mesh")
-        x = _hybrid_stack(params, cfg, run, x, positions)
-    else:  # hybrid
-        x0 = x
-        every = cfg.hybrid_attn_every
-        for g in range(_n_groups(cfg)):
-            for lp in params.layers[g * every:(g + 1) * every]:
-                x, ssm, conv = mamba_layer(lp, x, cfg, run)
-                states.append((ssm, conv))
-            x, kv = hybrid_shared_block(params, x, x0, params.inv_proj[g], cfg, run,
-                                        positions)
-            kvs.append(kv)
-    if collect_kv:
-        if kvs:
-            extras["kv"] = kvs
-        if dense_kvs:
-            extras["dense_kv"] = dense_kvs
-        if states:
-            extras["ssm"] = states
-    x = rms_norm(x, params.final_norm, cfg.norm_eps, kernel=uses_kernels(run))
-    return x, extras
+    x, extras = _walk(params, cfg, run, x, positions, frontend=frontend)
+    return rms_norm(x, params.final_norm, cfg.norm_eps, kernel=uses_kernels(run)), extras
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -702,14 +743,15 @@ def prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
             frontend: Optional[torch.Tensor] = None):
     """Full-sequence forward that also returns the populated cache.
 
-    The cache is sized for ``max(max_len, S)`` positions, where S counts a
-    vlm's frontend positions (``max_len`` as the reference's engine grows
-    it, to prompt + new tokens, may leave them out), so decoding can follow
-    without growing it (a hybrid ring buffer holds the last ``min(window,
-    S)`` positions in its first slots). An audio cache also holds each
-    decoder layer's cross K/V, the encoder output times cross_wk and
-    cross_wv, as the reference computes them; the logits are those of the
-    last position (B,1,V).
+    The cache is ``init_cache``'s for ``max(max_len, S)`` positions, where
+    S counts a vlm's frontend positions (``max_len`` as the reference's
+    engine grows it, to prompt + new tokens, may leave them out), allocated
+    before the first layer runs; the layers write their K/V and states into
+    it as they make them, and decoding follows in it without growing it (a
+    hybrid ring buffer holds the last ``min(window, S)`` positions in its
+    first slots). An audio cache also holds each decoder layer's cross K/V,
+    the encoder output times cross_wk and cross_wv, as the reference
+    computes them; the logits are those of the last position (B,1,V).
 
     On a mesh (a mesh context set and the parameters DTensors) the tokens
     and frontend are distributed by ``batch_shardings``, the step runs
@@ -724,49 +766,21 @@ def prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
 def _prefill(params: Transformer, cfg: ModelConfig, run: RunConfig,
              tokens: torch.Tensor, max_len: Optional[int],
              frontend: Optional[torch.Tensor]):
-    if cfg.published_hybrid:
-        _plain_only(cfg, params, "mesh")
-        return _prefill_hybrid(params, cfg, run, tokens, max_len)
-    hidden, extras = forward_hidden(params, cfg, run, tokens, frontend, collect_kv=True)
-    logits_last = lm_logits(params, cfg, hidden[:, -1:])
-    b, s = hidden.shape[:2]
+    x, positions = _embed(params, cfg, run, tokens, frontend)
+    b, s = x.shape[:2]
     mesh = current_mesh() if is_distributed(params.embed) else None
     cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device,
                        dtype=params.embed.dtype, mesh=mesh)
-    w = min(cfg.window or s, s) if cfg.family == "hybrid" else s
-    for names, kvs in ((("k", "v"), extras.get("kv", ())),
-                       (("dk", "dv"), extras.get("dense_kv", ()))):
-        for i, kv in enumerate(kvs):
-            for name, t in zip(names, kv):
-                write_positions(cache[name][i], 0, t[:, s - w:])
-    if "ssm" in extras:
-        ssm_l, conv_l = _layer_states(cache)
-        for i, (ssm, conv) in enumerate(extras["ssm"]):
-            ssm_l[i] = ssm
-            conv_l[i] = conv
-    if "enc_out" in extras:
-        enc = extras["enc_out"]
-        kv = (cfg.n_kv_heads, cfg.d_head, cfg.n_kv_heads)
-        for i, lp in enumerate(params.layers):
-            cache["cross_k"][i] = split_heads(enc @ gathered(lp.cross.cross_wk), *kv)
-            cache["cross_v"][i] = split_heads(enc @ gathered(lp.cross.cross_wv), *kv)
+    x, _ = _walk(params, cfg, run, x, positions, cache, frontend=frontend)
+    # The published hybrid layout normalises its last position alone, the
+    # other families every position, as the reference does. The two are not
+    # interchangeable bit for bit: the norm's kernel reduces a row with
+    # more warps where there are few rows.
+    if cfg.published_hybrid:
+        x = x[:, -1:].contiguous()
+    x = rms_norm(x, params.final_norm, cfg.norm_eps, kernel=uses_kernels(run))
     cache["pos"] = s
-    return logits_last, cache
-
-
-def _prefill_hybrid(params: Transformer, cfg: ModelConfig, run: RunConfig,
-                    tokens: torch.Tensor, max_len: Optional[int]):
-    """``_prefill`` of the published hybrid layout on a plain cache: the
-    cache is allocated first and ``_hybrid_stack`` writes it."""
-    b, s = tokens.shape
-    cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device,
-                       dtype=params.embed.dtype)
-    x, positions = _embed(params, cfg, run, tokens, None)
-    x = _hybrid_stack(params, cfg, run, x, positions, cache)
-    x = rms_norm(x[:, -1:].contiguous(), params.final_norm, cfg.norm_eps,
-                 kernel=uses_kernels(run))
-    cache["pos"] = s
-    return lm_logits(params, cfg, x), cache
+    return lm_logits(params, cfg, x[:, -1:]), cache
 
 
 def _audio_decode_layer(lp: DenseBlock, x, cfg, run, positions, kv_cache, pos,
@@ -844,68 +858,7 @@ def _decode_step(params: Transformer, cfg: ModelConfig, run: RunConfig,
     b = tokens.shape[0]
     x = embed_tokens(params, cfg, tokens)
     positions = pos.expand(b, 1) if on_device else torch.full((b, 1), pos, device=x.device)
-    if cfg.family in ("dense", "vlm", "moe", "audio"):
-        if not on_device and pos >= cache["k"].shape[2] and cfg.family != "vlm":
-            raise ValueError(f"KV cache of {cache['k'].shape[2]} positions is full")
-        if cfg.family == "audio":
-            x = _with_positions(cfg, x, start=pos)
-            cross_lengths = torch.full((b,), cache["cross_k"].shape[2], dtype=torch.int32,
-                                       device=x.device)
-            for i, lp in enumerate(params.layers):
-                x = _audio_decode_layer(lp, x, cfg, run, positions,
-                                        (cache["k"][i], cache["v"][i]), pos,
-                                        (cache["cross_k"][i], cache["cross_v"][i]),
-                                        cross_lengths)
-        else:
-            moe = cfg.family == "moe"
-            keys = ("dk", "dv") if moe else ("k", "v")
-            for i, lp in enumerate(params.dense_layers if moe else params.layers):
-                x, _ = dense_block(lp, x, cfg, run, positions,
-                                   kv_cache=(cache[keys[0]][i], cache[keys[1]][i]),
-                                   cache_pos=pos, layer=i)
-        if cfg.family == "moe":
-            first = len(params.dense_layers)
-            for i, lp in enumerate(params.layers):
-                x, _, _ = moe_layer_block(lp, x, cfg, run, positions,
-                                          kv_cache=(cache["k"][i], cache["v"][i]),
-                                          cache_pos=pos, layer=first + i)
-    else:
-        ssm_l, conv_l = _layer_states(cache)
-
-        def mamba_step(i, x, shared=None):
-            # The step writes the layer's ssm state in the cache in place.
-            x, _, conv = mamba_layer(params.layers[i], x, cfg, run, ssm_state=ssm_l[i],
-                                     conv_state=conv_l[i], single_step=True,
-                                     shared=shared, layer=i)
-            conv_l[i] = conv
-            return x
-
-        if cfg.published_hybrid:
-            _plain_only(cfg, params, "mesh")
-            if not on_device and pos >= cache["k"].shape[2]:
-                raise ValueError(f"KV cache of {cache['k'].shape[2]} positions is full")
-            x0, calls = x, _invocations(cfg)
-            for i, lp in enumerate(params.layers):
-                t = None
-                if i in calls:
-                    j = calls[i]
-                    t, _ = shared_block(params, lp, x, x0, cfg, run, positions, j, i,
-                                        kv_cache=(cache["k"][j], cache["v"][j]),
-                                        cache_pos=pos)
-                x = mamba_step(i, x, t)
-        elif cfg.family == "ssm":
-            for i in range(len(params.layers)):
-                x = mamba_step(i, x)
-        else:  # hybrid
-            x0 = x
-            every, wlen = cfg.hybrid_attn_every, cache["k"].shape[2]
-            for g in range(_n_groups(cfg)):
-                for i in range(g * every, (g + 1) * every):
-                    x = mamba_step(i, x)
-                x, _ = hybrid_shared_block(
-                    params, x, x0, params.inv_proj[g], cfg, run, positions,
-                    kv_cache=(cache["k"][g], cache["v"][g]), cache_pos=pos % wlen,
-                    cache_fill=min(pos + 1, wlen))
+    x, _ = _walk(params, cfg, run, x, positions, cache, pos)
     x = rms_norm(x, params.final_norm, cfg.norm_eps, kernel=uses_kernels(run))
     logits = lm_logits(params, cfg, x)
     return logits, dict(cache, pos=pos + 1)

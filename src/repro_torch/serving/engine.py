@@ -29,7 +29,7 @@ from repro_torch import Device, resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
 from repro_torch.models import transformer
-from repro_torch.models.transformer import Cache, Transformer, init_cache, prefill
+from repro_torch.models.transformer import Cache, Transformer, prefill
 from repro_torch.tracing import span
 
 
@@ -205,13 +205,12 @@ class ServeEngine:
                 for i, (_, p) in enumerate(wave):
                     tokens[i, plen - len(p):] = p  # left-pad
 
-                # The cache is sized for the whole generation budget up front
+                # Prefill sizes the cache for the whole generation budget
                 # (a vlm's frontend positions left out of it, as in the
-                # reference).
+                # reference), and decode steps in it as it is.
                 logits, cache = prefill(self.params, self.cfg, self.run,
                                         torch.from_numpy(tokens).to(self.device),
                                         max_len=plen + max_new_tokens, frontend=frontend)
-            cache = self._grow_cache(cache, plen + max_new_tokens, b)
             if graph is not None:
                 cache = graph.start(cache)
 
@@ -240,35 +239,3 @@ class ServeEngine:
         return [GenerationResult(request_id=rid, prompt=list(p),
                                  tokens=out_tokens[i])
                 for i, (rid, p) in enumerate(wave)]
-
-    def _grow_cache(self, cache: Cache, new_len: int, batch: int) -> Cache:
-        """A cache for ``new_len`` positions holding ``cache``'s.
-
-        k/v (and a moe cache's dk/dv) grow to what ``init_cache`` gives for
-        ``new_len`` (a hybrid ring buffer to ``min(window, new_len)``), zeros
-        after the old positions;
-        the ssm and conv states and an audio cache's cross K/V carry over
-        unchanged. A cache with nothing to
-        grow (no k/v, or k/v long enough already) is returned as it is. On
-        ``_run_wave``'s path prefill has sized the cache already, so this
-        returns it unchanged; it is kept as the reference engine's
-        counterpart (``repro.serving.engine``).
-        """
-        if "k" not in cache:  # ssm: states of a fixed size
-            return cache
-        old_len = cache["k"].shape[2]
-        want = new_len
-        if self.cfg.family == "hybrid":  # a ring buffer of the window
-            want = min(self.cfg.window or new_len, new_len)
-        if old_len >= want:
-            return cache
-        grown = init_cache(self.cfg, batch, new_len, device=cache["k"].device,
-                           dtype=cache["k"].dtype)
-        for key in ("k", "v", "dk", "dv"):
-            if key in cache:
-                grown[key][:, :, :old_len] = cache[key]
-        for key in ("ssm", "conv", "cross_k", "cross_v"):
-            if key in cache:
-                grown[key] = cache[key]
-        grown["pos"] = cache["pos"]
-        return grown

@@ -383,21 +383,6 @@ def test_generate_matches_reference_tokens(served, impl, new_tokens):
     assert all(len(r.tokens) == new_tokens for r in got)
 
 
-def test_grow_cache_keeps_the_cross_cache():
-    cfg = tiny_variant(get_config("whisper-base"))
-    engine = ServeEngine(cfg, Transformer(cfg, device="cpu"), batch_size=2, device="cpu")
-    cache = init_cache(cfg, 2, 3, device="cpu")
-    for key in ("k", "v", "cross_k", "cross_v"):
-        cache[key].normal_()
-    grown = engine._grow_cache(dict(cache, pos=3), 8, 2)
-    for key in ("k", "v"):
-        assert grown[key].shape[2] == 8
-        assert torch.equal(grown[key][:, :, :3], cache[key])
-        assert not grown[key][:, :, 3:].any()
-    for key in ("cross_k", "cross_v"):
-        assert grown[key] is cache[key]
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_cli_runs_on_cpu(capsys, arch):
     serve.main(["--arch", arch, "--device", "cpu", "--requests", "4", "--batch-size", "2",

@@ -270,25 +270,6 @@ def test_init_cache_shapes(arch):
         assert "k" not in cache
 
 
-def test_grow_cache_keeps_states_and_grows_the_ring():
-    _, cfg = _configs("zamba2-2.7b", "float32", window=8)
-    model = Transformer(cfg, device="cpu")
-    engine = ServeEngine(cfg, model, batch_size=2, device="cpu")
-    cache = init_cache(cfg, 2, 5, device="cpu")
-    cache["k"].normal_()
-    cache["ssm"].normal_()
-    grown = engine._grow_cache(cache, 13, 2)
-    assert grown["k"].shape[2] == 8  # min(window, new_len)
-    assert torch.equal(grown["k"][:, :, :5], cache["k"])
-    assert grown["k"][:, :, 5:].abs().max() == 0
-    assert grown["ssm"] is cache["ssm"] and grown["conv"] is cache["conv"]
-    assert engine._grow_cache(grown, 20, 2) is grown  # the ring is full size
-    _, scfg = _configs("mamba2-130m", "float32")
-    scache = init_cache(scfg, 2, 5, device="cpu")
-    sengine = ServeEngine(scfg, Transformer(scfg, device="cpu"), device="cpu")
-    assert sengine._grow_cache(scache, 64, 2) is scache
-
-
 @pytest.fixture(scope="module", params=ARCHS)
 def reference_tokens(request):
     jcfg, cfg = _configs(request.param, "float32")

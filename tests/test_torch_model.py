@@ -1,7 +1,9 @@
 """The port's dense decoder against ``repro.models`` on the reference's own
 weights (``init_params`` output converted with ``params_from_jax``), on the
 tiny variant of tinyllama-1.1b (2 layers, d_model 128, 4 heads, 2 KV heads,
-d_head 32).
+d_head 32); and the serve cache of all seven serving layouts, which prefill
+allocates before its first layer and fills as it goes, held to
+``init_cache`` and to a teacher-forced decode step.
 
 Tolerances: f32 1e-4 (summation order only); bf16 2e-2 on logits of
 magnitude about 1, a few bf16 steps, because XLA and PyTorch round the bf16
@@ -24,7 +26,8 @@ from repro.models import prefill as jax_prefill
 from repro.models.transformer import forward_hidden as jax_forward_hidden
 from repro.serving.engine import ServeEngine as JaxEngine
 from repro_torch.configs import RunConfig, get_config, tiny_variant
-from repro_torch.models import Transformer, decode_step, forward_hidden, prefill
+from repro_torch.models import (Transformer, decode_step, forward_hidden, init_cache, prefill,
+                                transformer)
 from repro_torch.models.convert import params_from_jax
 
 IMPLS = ("flash", "chunked", "naive")
@@ -155,3 +158,96 @@ def test_random_init_is_seeded_and_scaled():
     assert 0.018 < std < 0.022
     assert a.layers[0].norm1.float().eq(1).all()
     assert a.embed.dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# The serve cache of every layout: prefill allocates it first and fills it
+# ---------------------------------------------------------------------------
+
+
+def _layout(name):
+    """(cfg, model, frontend) of a serving layout at tiny size in f32, its
+    matrices scaled to N(0, 0.08), about 1/sqrt(d_model), so that the
+    attended K/V and the carried states move the logits."""
+    if name == "published":
+        from test_torch_zamba2 import program
+
+        cfg, model = program()
+        return cfg, model, None
+    arch = {"dense": "tinyllama-1.1b", "vlm": "phi-3-vision-4.2b", "audio": "whisper-base",
+            "moe": "deepseek-moe-16b", "ssm": "mamba2-130m", "hybrid": "zamba2-2.7b"}[name]
+    cfg = dataclasses.replace(tiny_variant(get_config(arch)), dtype="float32")
+    if name == "moe":  # a slot for every token: routing drops none in prefill or decode
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    if name == "hybrid":
+        cfg = dataclasses.replace(cfg, window=8)
+    model = Transformer(cfg, device="cpu")
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim >= 2:
+                p.mul_(4)
+    frontend = None
+    if cfg.frontend_len:
+        g = torch.Generator().manual_seed(1)
+        frontend = torch.randn((B, cfg.frontend_len, cfg.d_model), generator=g)
+    return cfg, model, frontend
+
+
+@pytest.mark.parametrize("name", ["dense", "vlm", "audio", "moe", "ssm", "hybrid",
+                                  "published"])
+def test_prefill_fills_the_cache_it_allocates_first(name, monkeypatch):
+    """``prefill(..., max_len=S + 3)`` (S counting a vlm's patches) allocates
+    ``init_cache``'s cache before any layer runs and returns it filled: the
+    same keys, shapes and dtypes, every slot of the prompt written and zeros
+    past it (a ring of min(window, S + 3) slots full), the cross K/V and the
+    states written; a decode step on it then gives the logits of a prefill
+    of S + 1 at its last position."""
+    cfg, model, frontend = _layout(name)
+    # A prompt of 16 wraps the hybrid's ring of 8 twice. Its prefill keeps
+    # positions S - 8.. in slots 0.. and decode writes position p to slot
+    # p % 8, which agree only where 8 divides S: the reference's layout,
+    # which the port mirrors.
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, size=(B, 17)))
+    filled = tokens.shape[1] - 1 + (cfg.frontend_len if name == "vlm" else 0)
+    run = _run("flash")
+    events = []
+
+    def spy(fn, event):
+        def called(*args, **kwargs):
+            events.append(event)
+            return fn(*args, **kwargs)
+        return called
+
+    monkeypatch.setattr(transformer, "init_cache", spy(init_cache, "cache"))
+    for block in ("dense_block", "moe_layer_block", "mamba_layer", "shared_block",
+                  "hybrid_shared_block"):
+        monkeypatch.setattr(transformer, block, spy(getattr(transformer, block), "layer"))
+    with torch.inference_mode():
+        _, cache = prefill(model, cfg, run, tokens[:, :-1], max_len=filled + 3,
+                           frontend=frontend)
+        assert events[0] == "cache" and events.count("cache") == 1 and "layer" in events
+
+        want = init_cache(cfg, B, filled + 3, device="cpu")
+        assert set(cache) == set(want) and cache["pos"] == filled
+        for key, t in want.items():
+            if key != "pos":
+                assert (cache[key].shape, cache[key].dtype) == (t.shape, t.dtype), key
+        for key in ("k", "v", "dk", "dv"):
+            if key in cache:
+                ring = cache[key].shape[2] < filled
+                assert ring == (name == "hybrid"), key
+                live = min(cache[key].shape[2], filled)
+                assert cache[key][:, :, :live].abs().amax(dim=(3, 4)).gt(0).all(), key
+                assert not cache[key][:, :, live:].any(), key
+        if name == "hybrid":
+            assert cache["k"].shape[2] == min(cfg.window, filled + 3)
+        for key in ("cross_k", "cross_v", "ssm", "conv"):
+            if key in cache:
+                assert cache[key].flatten(1).abs().amax(dim=1).gt(0).all(), key
+
+        monkeypatch.undo()
+        full, _ = prefill(model, cfg, run, tokens, frontend=frontend)
+        step, after = decode_step(model, cfg, run, cache, tokens[:, -1:])
+    err = float((step[:, 0] - full[:, -1]).abs().max()) / float(full[:, -1].abs().max())
+    assert err < TOL["float32"], err
+    assert int(after["pos"]) == filled + 1

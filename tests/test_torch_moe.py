@@ -295,19 +295,6 @@ def test_generate_matches_reference_tokens(setup, reference_tokens, impl):
     assert [r.tokens for r in got] == [r.tokens for r in reference_tokens]
 
 
-def test_grow_cache_grows_the_dense_layers(setup):
-    _, cfg, _, _, model, _ = setup
-    engine = ServeEngine(cfg, model, batch_size=2, device="cpu")
-    cache = init_cache(cfg, 2, 3, device="cpu")
-    for key in ("k", "v", "dk", "dv"):
-        cache[key].normal_()
-    grown = engine._grow_cache(dict(cache, pos=3), 8, 2)
-    for key in ("k", "v", "dk", "dv"):
-        assert grown[key].shape[2] == 8
-        assert torch.equal(grown[key][:, :, :3], cache[key])
-        assert not grown[key][:, :, 3:].any()
-
-
 def test_serve_cli_runs_on_cpu(capsys):
     serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2", "--batch-size", "2",
                 "--prompt-len", "8", "--max-new-tokens", "3"])

@@ -7,7 +7,6 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import tiny_variant as jax_tiny
@@ -50,18 +49,6 @@ def test_generate_stops_at_eos(reference):
     got = ServeEngine(cfg, model, batch_size=2, device="cpu").generate(
         PROMPTS, max_new_tokens=4, eos_id=eos)
     assert got[0].tokens == want[0].tokens[:2]
-
-
-def test_grow_cache_keeps_contents(reference):
-    cfg, model, _ = reference
-    engine = ServeEngine(cfg, model, batch_size=2, device="cpu")
-    cache = {"k": torch.randn(cfg.n_layers, 2, 3, cfg.n_kv_heads, cfg.d_head),
-             "v": torch.randn(cfg.n_layers, 2, 3, cfg.n_kv_heads, cfg.d_head), "pos": 3}
-    grown = engine._grow_cache(cache, 8, 2)
-    assert grown["k"].shape[2] == 8 and grown["pos"] == 3
-    assert torch.equal(grown["k"][:, :, :3], cache["k"])
-    assert grown["v"][:, :, 3:].abs().max() == 0
-    assert engine._grow_cache(grown, 5, 2) is grown
 
 
 def test_engine_rejects_weights_on_another_device(reference):

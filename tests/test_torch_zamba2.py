@@ -143,15 +143,11 @@ def test_a_full_cache_raises():
             transformer.decode_step(model, cfg, RUNS["chunked"], cache, toks[:, :1])
 
 
-def test_training_and_a_collected_prefill_raise():
-    """The layout serves only: it has no training forward, and its prefill
-    writes the cache as it goes rather than collecting K/V."""
+def test_training_raises():
+    """The layout serves only: it has no training forward."""
     cfg, model = program()
-    toks = tokens(s=9)
     with pytest.raises(NotImplementedError, match="training"):
-        transformer.forward_train(model, cfg, RUNS["chunked"], toks)
-    with pytest.raises(NotImplementedError, match="collects no K/V"):
-        transformer.forward_hidden(model, cfg, RUNS["chunked"], toks, collect_kv=True)
+        transformer.forward_train(model, cfg, RUNS["chunked"], tokens(s=9))
 
 
 @pytest.mark.parametrize("step", ["forward", "prefill", "decode"])
